@@ -1,0 +1,480 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts and is right on one GPU.
+
+    python3 chip_smoke.py            # needs one CUDA card, nvcc, no network
+
+Drives the port's main path (calibrate mixtral-8x7b against the hand-written
+kernels, then price steps from the fit) through ``python -m repro_torch``'s
+own entry points, at the full width of mixtral-8x7b.  Phases, one JSON line
+each:
+
+1. ``env``        the card as ``nvidia-smi`` names it, torch and CUDA versions
+2. ``build``      compiles ``src/repro_torch/kernels/csrc/*.cu``
+3. ``kernels``    every kernel against its plain PyTorch version on the card,
+                  f32 and bf16, then timed at the shape the oracle gives it
+4. ``calibrate``  the CLI's ``calibrate`` with the ``kernels`` oracle; every
+                  kernel's launch counter must rise
+5. ``predict``    load the artifacts, price prefill and decode steps, and hold
+                  the fitted parts to the fitted models' own predictions
+
+Any failing phase makes the exit code non-zero.  There is no CPU path: without
+a CUDA device the script fails.  The line before the card's name lists every
+kernel with its launches on the main path, error, time, plain version's time,
+roofline bound and a library call's time; the last line is the verdict.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+
+# importing the port first: a directory that holds this script alone fails here
+from repro_torch.api import cli  # noqa: E402
+from repro_torch.calib import load_calibrated_ops  # noqa: E402
+from repro_torch.calib.oracle import KernelOracle  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.hardware import H100_SXM, ParallelismConfig  # noqa: E402
+from repro_torch.core.predictor import ExecutionPredictor  # noqa: E402
+from repro_torch.core.routing import BalancedRouting  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+
+# The main path's own sizes: the oracle's accelerator limits and a sample count
+# that keeps the whole script well inside its time limit.
+TRAIN_SAMPLES, EVAL_SAMPLES, MAX_LEN, MAX_BATCH = 400, 120, 8192, 64
+
+# Published dense peaks of one H100 SXM at its full 700 W limit.
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+
+# bf16: the reference tests' gate, 2e-2.  The GEMM outputs are O(1), so there
+# it is taken as it stands.  Attention over thousands of near-uniform keys
+# gives outputs of about 0.01, below an absolute 2e-2, so for bf16 attention
+# the absolute part is scaled by each output row's rms: an element may differ
+# by 2e-2 * (rms of its row + its own size) and no more.
+# f32 attention: the same tests' gate.  f32 GEMM: sums 4096 deep in another
+# order than cuBLAS, so the gate is relative to the largest output.
+TOL_BF16 = dict(atol=2e-2, rtol=2e-2)
+TOL_BF16_ATTN = dict(atol=2e-2, rtol=2e-2, atol_per_row_rms=True)
+TOL_F32 = dict(atol=2e-5, rtol=2e-5)
+TOL_F32_GEMM_REL = 1e-4
+
+REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:85",
+    "decode_attention": "src/repro/kernels/decode_attention.py:66",
+    "grouped_gemm": "src/repro/kernels/grouped_gemm.py:52",
+}
+SOURCES = {
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "grouped_gemm": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+}
+
+FAILURES = []
+
+
+def say(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(msg: str) -> None:
+    FAILURES.append(msg)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+
+
+def stop_if_failed(phase: str) -> None:
+    if FAILURES:
+        print(json.dumps({"phase": phase, "ok": False, "failures": FAILURES}),
+              flush=True)
+        raise SystemExit(1)
+
+
+def randn(gen, *shape, dtype, scale=0.5):
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def time_ms(fn, reps: int = 10) -> float:
+    """Mean milliseconds per call by CUDA events, after two warm-up calls."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare(name: str, case: str, got, want, tol=None, rel_to_max=None) -> float:
+    """Hold ``got`` to ``want``; returns the largest absolute difference."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        fail(f"{name} [{case}]: shape {tuple(g.shape)} != {tuple(w.shape)}")
+        return float("nan")
+    if not bool(torch.isfinite(g).all()):
+        fail(f"{name} [{case}]: non-finite output")
+        return float("nan")
+    diff = (g - w).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if rel_to_max is not None:
+        bad = err > rel_to_max * float(w.abs().max())
+    else:
+        atol = tol["atol"]
+        if tol.get("atol_per_row_rms"):
+            atol = atol * w.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        bad = bool((diff > atol + tol["rtol"] * w.abs()).any())
+    if bad:
+        fail(f"{name} [{case}]: max abs err {err:.3e} outside tolerance")
+    return err
+
+
+def bound(ops_count: float, nbytes: float, dtype):
+    t_ops = ops_count / PEAK_OPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ------------------------------------------------------------------ phases --
+def phase_env() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stdout.strip()}")
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown"
+    say("env", card=card, torch=torch.__version__, cuda=torch.version.cuda,
+        python=sys.version.split()[0],
+        allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    stop_if_failed("env")
+    return card
+
+
+def phase_build(verbose: bool) -> None:
+    t0 = time.perf_counter()
+    _build.load(verbose=verbose)
+    say("build", seconds=round(time.perf_counter() - t0, 2),
+        nvcc_seconds=round(_build.last_build_s, 2),
+        sources=[os.path.relpath(str(p), ROOT) for p in _build.sources()],
+        library=os.path.relpath(str(_build.build()), ROOT))
+
+
+def check_flash(gen, rows: dict) -> None:
+    name = "flash_attention"
+    H, K, hd = 32, 8, 128
+    errs = []
+    cases = [  # (label, S, T, causal, window)
+        ("causal", 2048, 2048, True, 0),
+        ("window", 1024, 1024, True, 300),
+        ("s_ne_t", 500, 1301, True, 0),
+        ("bidirectional", 333, 333, False, 0),
+    ]
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16_ATTN)):
+        for label, S, T, causal, window in cases:
+            q = randn(gen, 1, S, H, hd, dtype=dtype)
+            k = randn(gen, 1, T, K, hd, dtype=dtype)
+            v = randn(gen, 1, T, K, hd, dtype=dtype)
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+            errs.append(compare(name, f"{label} {dtype}", got, want, tol))
+    # the pad path: a head dim that is no multiple of 128
+    q = randn(gen, 2, 200, 8, 112, dtype=torch.float32)
+    k = randn(gen, 2, 200, 8, 112, dtype=torch.float32)
+    got = ops.flash_attention(q, k, k, causal=True)
+    errs.append(compare(name, "hd112 f32", got,
+                        ref.flash_attention_ref(q, k, k, causal=True), TOL_F32))
+
+    # timed at the shape the oracle hands the kernel: one request, bf16
+    S = KernelOracle(H100_SXM)._round(2048)
+    dtype = torch.bfloat16
+    q = randn(gen, 1, S, H, hd, dtype=dtype)
+    k = randn(gen, 1, S, K, hd, dtype=dtype)
+    got = ops.flash_attention(q, k, k, causal=True)
+    errs.append(compare(name, f"timed S={S}", got,
+                        ref.flash_attention_ref(q, k, k, causal=True),
+                        TOL_BF16_ATTN))
+    ms = time_ms(lambda: ops.flash_attention(q, k, k, causal=True))
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, k, causal=True), reps=3)
+    qt, kt = q.transpose(1, 2), k.transpose(1, 2)   # views: K heads, no copy
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, kt, is_causal=True, enable_gqa=True))
+    pairs = S * (S + 1) // 2
+    # v is k's own memory here, as in the oracle's call: its bytes count once
+    b_ms, b_by = bound(4.0 * hd * H * pairs, nbytes(q, k, got), dtype)
+    rows[name] = dict(shape=f"B=1 S=T={S} H={H} K={K} hd={hd} causal bf16",
+                      max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+def check_decode(gen, rows: dict) -> None:
+    name = "decode_attention"
+    H, K, hd = 32, 8, 128
+    B, T = 32, 4096
+    errs = []
+    lens = torch.randint(1, T + 1, (B,), generator=gen, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
+    lens[0], lens[1], lens[2] = 1, T, 65
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16_ATTN)):
+        q = randn(gen, B, H, hd, dtype=dtype)
+        k = randn(gen, B, T, K, hd, dtype=dtype)
+        v = randn(gen, B, T, K, hd, dtype=dtype)
+        got = ops.decode_attention(q, k, v, lens)
+        errs.append(compare(name, f"mixed lengths {dtype}", got,
+                            ref.decode_attention_ref(q, k, v, lens), tol))
+    # other group widths: MHA (G=1), G=7, and the pad path
+    for Hh, Kk, hdd in ((8, 8, 128), (28, 4, 128), (16, 2, 112), (8, 1, 256)):
+        q = randn(gen, 3, Hh, hdd, dtype=torch.float32)
+        k = randn(gen, 3, 300, Kk, hdd, dtype=torch.float32)
+        v = randn(gen, 3, 300, Kk, hdd, dtype=torch.float32)
+        ln = torch.tensor([300, 1, 129], dtype=torch.int32, device="cuda")
+        got = ops.decode_attention(q, k, v, ln)
+        errs.append(compare(name, f"H={Hh} K={Kk} hd={hdd} f32", got,
+                            ref.decode_attention_ref(q, k, v, ln), TOL_F32))
+
+    # timed as the oracle calls it: k passed as v, lengths below the bucket
+    dtype = torch.bfloat16
+    Tb = KernelOracle(H100_SXM)._round(T)
+    q = randn(gen, B, H, hd, dtype=dtype)
+    k = randn(gen, B, Tb, K, hd, dtype=dtype)
+    got = ops.decode_attention(q, k, k, lens)
+    errs.append(compare(name, f"timed B={B} T={Tb}", got,
+                        ref.decode_attention_ref(q, k, k, lens),
+                        TOL_BF16_ATTN))
+    ms = time_ms(lambda: ops.decode_attention(q, k, k, lens))
+    plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, k, lens), reps=3)
+    qt, kt = q[:, :, None, :], k.transpose(1, 2)    # views: K heads, no copy
+    mask = (torch.arange(Tb, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, kt, attn_mask=mask, enable_gqa=True))
+    total = int(lens.sum())
+    # v is k's own memory here, as in the oracle's call: the valid cache's
+    # bytes count once
+    kv_bytes = total * K * hd * k.element_size()
+    b_ms, b_by = bound(4.0 * hd * H * total,
+                       kv_bytes + nbytes(q, got, lens), dtype)
+    rows[name] = dict(shape=f"B={B} T={Tb} H={H} K={K} hd={hd} "
+                            f"sum(lengths)={total} bf16",
+                      max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+def check_grouped(gen, rows: dict) -> None:
+    name = "grouped_gemm"
+    E, din, dout = 8, 4096, 14336
+    errs = []
+
+    def zeros_past(case, got, sizes):
+        for e, n in enumerate(sizes):
+            if not bool((got[e, n:] == 0).all()):
+                fail(f"{name} [{case}]: rows past group size of expert {e} "
+                     f"are not exactly 0.0")
+
+    C = 320
+    sizes = [0, 320, 1, 129, 64, 200, 319, 7]
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(gen, E, C, din, dtype=dtype)
+        w = randn(gen, E, din, dout, dtype=dtype, scale=0.05)
+        got = ops.grouped_gemm(x, w, gs)
+        want = ref.grouped_gemm_ref(x, w, gs)
+        if dtype == torch.float32:
+            errs.append(compare(name, "ragged f32", got, want,
+                                rel_to_max=TOL_F32_GEMM_REL))
+        else:
+            errs.append(compare(name, "ragged bf16", got, want, TOL_BF16))
+        zeros_past(f"ragged {dtype}", got, sizes)
+        del x, w, got, want
+    # widths that are no multiple of 8 take the FMA path in bf16 too
+    x = randn(gen, 3, 50, 100, dtype=torch.bfloat16)
+    w = randn(gen, 3, 100, 70, dtype=torch.bfloat16, scale=0.1)
+    g3 = torch.tensor([50, 0, 17], dtype=torch.int32, device="cuda")
+    got = ops.grouped_gemm(x, w, g3)
+    errs.append(compare(name, "odd widths bf16", got,
+                        ref.grouped_gemm_ref(x, w, g3), TOL_BF16))
+    zeros_past("odd widths bf16", got, [50, 0, 17])
+
+    # timed as the oracle calls it: capacity is the bucket of the largest group
+    dtype = torch.bfloat16
+    sizes = [2048, 0, 1500, 37, 1024, 2047, 600, 256]
+    C = KernelOracle(H100_SXM)._round(max(sizes))
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    x = randn(gen, E, C, din, dtype=dtype)
+    w = randn(gen, E, din, dout, dtype=dtype, scale=0.05)
+    got = ops.grouped_gemm(x, w, gs)
+    errs.append(compare(name, f"timed C={C}", got,
+                        ref.grouped_gemm_ref(x, w, gs), TOL_BF16))
+    zeros_past(f"timed C={C}", got, sizes)
+    ms = time_ms(lambda: ops.grouped_gemm(x, w, gs), reps=5)
+    plain_ms = time_ms(lambda: ref.grouped_gemm_ref(x, w, gs), reps=2)
+    library_ms = time_ms(lambda: torch.bmm(x, w), reps=5)
+    live = sum(min(s, C) for s in sizes)
+    experts = sum(1 for s in sizes if s > 0)
+    item = x.element_size()
+    moved = (live * din + experts * din * dout) * item + nbytes(got, gs)
+    b_ms, b_by = bound(2.0 * live * din * dout, moved, dtype)
+    rows[name] = dict(shape=f"E={E} C={C} din={din} dout={dout} "
+                            f"sizes={sizes} bf16",
+                      max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+def phase_kernels() -> dict:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows: dict = {}
+    for check in (check_flash, check_decode, check_grouped):
+        check(gen, rows)
+        torch.cuda.empty_cache()
+    say("kernels", ok=not FAILURES,
+        tolerances={"bf16": TOL_BF16, "bf16_attention": TOL_BF16_ATTN,
+                    "f32": TOL_F32,
+                    "f32_gemm_rel_to_max": TOL_F32_GEMM_REL},
+        launches_so_far=ops.launch_counts(), rows=rows)
+    stop_if_failed("kernels")
+    return rows
+
+
+def phase_calibrate(out_root: str) -> dict:
+    entry_path = os.path.join(out_root, "entry.json")
+    os.makedirs(out_root, exist_ok=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["calibrate", "--model", "mixtral-8x7b", "--hardware",
+                   "H100-SXM", "--oracle", "kernels", "--no-fidelity",
+                   "-o", out_root, "--train-samples", str(TRAIN_SAMPLES),
+                   "--eval-samples", str(EVAL_SAMPLES),
+                   "--max-len", str(MAX_LEN), "--max-batch", str(MAX_BATCH),
+                   "--label", "chip_smoke",
+                   "--entry-out", entry_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if rc != 0:
+        fail(f"calibrate exited with {rc}")
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"calibrate never launched {name}")
+    fidelity = {}
+    if os.path.isfile(entry_path):
+        with open(entry_path) as f:
+            fidelity = json.load(f)["operators"]
+    else:
+        fail("calibrate wrote no fidelity entry")
+    say("calibrate", ok=not FAILURES, wall_s=round(wall, 2), launches=counts,
+        n_train=TRAIN_SAMPLES, n_eval=EVAL_SAMPLES, max_len=MAX_LEN,
+        max_batch=MAX_BATCH,
+        fidelity=fidelity)
+    stop_if_failed("calibrate")
+    return counts
+
+
+def phase_predict(out_root: str) -> None:
+    cfg = get_config("mixtral-8x7b")
+    hw = H100_SXM
+    fitted = load_calibrated_ops(out_root, cfg, hw)
+    pred = ExecutionPredictor(cfg, ParallelismConfig(tp=1), hw, fitted,
+                              memoize=False)
+    n_layers = len(cfg.pattern)
+    moe = cfg.moe
+    n_mats = 3 if cfg.gated_mlp else 2
+    steps = []
+
+    def expect(q_lens, kv_lens, decode):
+        """The fitted models' own predictions, summed as the predictor sums."""
+        attn = gg = 0.0
+        toks = sum(q_lens)
+        counts = BalancedRouting().assign(toks, moe.num_experts, moe.top_k, None)
+        cap = math.ceil(moe.capacity_factor_eval * toks * moe.top_k
+                        / moe.num_experts)
+        kept = [min(int(c), cap) for c in counts]
+        for kind in cfg.pattern:
+            window = cfg.sliding_window if kind == "local" else 0
+            if decode:
+                a = fitted.attention.predict([1] * len(kv_lens), kv_lens,
+                                             causal=False, window=window)
+            else:
+                a = fitted.attention.predict(q_lens, kv_lens, causal=True,
+                                             window=window)
+            attn += a
+            gg += n_mats * fitted.grouped.predict(kept)
+        return attn, gg
+
+    for label, decode, lens in (
+            ("prefill", False, [512, 1024, 300]),
+            ("prefill", False, [2048]),
+            ("decode", True, [900, 4000, 128, 2048] * 4),
+            ("decode", True, [1500] * 8)):
+        if decode:
+            bd = pred.decode_time(lens)
+            want_attn, want_gg = expect([1] * len(lens), lens, True)
+        else:
+            bd = pred.prefill_time(lens)
+            want_attn, want_gg = expect(lens, lens, False)
+        ok = (math.isfinite(bd.total) and bd.total > 0
+              and math.isclose(bd.parts["attn"], want_attn, rel_tol=1e-12)
+              and math.isclose(bd.parts["moe_expert_gemm"], want_gg,
+                               rel_tol=1e-12))
+        if not ok:
+            fail(f"predict {label} {lens}: attn {bd.parts.get('attn')} vs "
+                 f"{want_attn}, moe_expert_gemm "
+                 f"{bd.parts.get('moe_expert_gemm')} vs {want_gg}, "
+                 f"total {bd.total}")
+        steps.append({"step": label, "lens": lens, "total_s": bd.total,
+                      "attn_s": bd.parts["attn"],
+                      "moe_expert_gemm_s": bd.parts["moe_expert_gemm"]})
+    say("predict", ok=not FAILURES, layers=n_layers, steps=steps)
+    stop_if_failed("predict")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print each kernel's registers and shared memory")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script has no CPU path",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: true f32
+
+    card = phase_env()
+    phase_build(args.ptxas)
+    rows = phase_kernels()
+    out_root = os.path.join(ROOT, "build", "calib")
+    counts = phase_calibrate(out_root)
+    phase_predict(out_root)
+
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": counts[name],
+                "shape": row["shape"], "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+               for name, row in rows.items()]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,47 @@
+"""Architecture config registry.
+
+``get_config("yi-9b")`` returns the full assigned config;
+``get_config("yi-9b", smoke=True)`` returns the reduced same-family variant.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import (
+    ModelConfig, MoEConfig, ShapeConfig, SHAPES, SMOKE_SHAPE,
+    TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K,
+    reduced, shape_applicable,
+)
+
+from repro_torch.configs import (  # noqa: E402
+    yi_9b, qwen3_32b, gemma2_27b, qwen3_8b, kimi_k2, mixtral_8x7b,
+    rwkv6_1b6, pixtral_12b, seamless_m4t_v2, recurrentgemma_2b, qwen2_7b,
+)
+
+# The 10 assigned architectures (order matches the assignment table).
+ASSIGNED = (
+    yi_9b.CONFIG,
+    qwen3_32b.CONFIG,
+    gemma2_27b.CONFIG,
+    qwen3_8b.CONFIG,
+    kimi_k2.CONFIG,
+    mixtral_8x7b.CONFIG,
+    rwkv6_1b6.CONFIG,
+    pixtral_12b.CONFIG,
+    seamless_m4t_v2.CONFIG,
+    recurrentgemma_2b.CONFIG,
+)
+
+REGISTRY = {c.name: c for c in ASSIGNED + (qwen2_7b.CONFIG,)}
+ARCH_IDS = [c.name for c in ASSIGNED]
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    cfg = REGISTRY[name]
+    return reduced(cfg) if smoke else cfg
+
+
+__all__ = [
+    "ModelConfig", "MoEConfig", "ShapeConfig", "SHAPES", "SMOKE_SHAPE",
+    "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
+    "reduced", "shape_applicable", "REGISTRY", "ARCH_IDS", "ASSIGNED",
+    "get_config",
+]
