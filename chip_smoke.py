@@ -3,24 +3,35 @@
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, no network
 
-Drives the port's main path (calibrate mixtral-8x7b against the hand-written
-kernels, then price steps from the fit) through ``python -m repro_torch``'s
-own entry points, at the full width of mixtral-8x7b.  Phases, one JSON line
-each:
+Drives the port's two paths through their own entry points: calibrate
+mixtral-8x7b against the hand-written kernels and price steps from the fit
+(``python -m repro_torch``'s ``calibrate``, at the full width of
+mixtral-8x7b), and serve rwkv6-1.6b at full width through ``MiniEngine``,
+whose prefill runs the chunked WKV6 kernel in every layer.  Phases, one JSON
+line each:
 
 1. ``env``        the card as ``nvidia-smi`` names it, torch and CUDA versions
 2. ``build``      compiles ``src/repro_torch/kernels/csrc/*.cu``
 3. ``kernels``    every kernel against its plain PyTorch version on the card,
-                  f32 and bf16, then timed at the shape the oracle gives it
-4. ``calibrate``  the CLI's ``calibrate`` with the ``kernels`` oracle; every
-                  kernel's launch counter must rise
+                  f32 and bf16, then timed at the shape its path gives it
+4. ``calibrate``  the CLI's ``calibrate`` with the ``kernels`` oracle; the
+                  three kernels it prices must each be launched
 5. ``predict``    load the artifacts, price prefill and decode steps, and hold
                   the fitted parts to the fitted models' own predictions
+6. ``serve``      rwkv6-1.6b, random weights from a seed: (a) f32 prefill of
+                  one 2048-token prompt through the kernel and through the
+                  plain sequential recurrence, logits and every layer's state
+                  within 2e-3; (b) bf16 ``MiniEngine`` with 4 slots serving 6
+                  requests (a warm pass, then a measured one): the kernel must
+                  be launched once per layer per prefill, and every request's
+                  tokens must equal a greedy loop over the model's own
+                  ``prefill``/``decode``
 
 Any failing phase makes the exit code non-zero.  There is no CPU path: without
 a CUDA device the script fails.  The line before the card's name lists every
-kernel with its launches on the main path, error, time, plain version's time,
-roofline bound and a library call's time; the last line is the verdict.
+kernel with its launches on its path (``calibrate`` for the three it prices,
+``serve`` for ``wkv_chunked``), error, time, plain version's time, roofline
+bound and a library call's time; the last line is the verdict.
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ import argparse
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -35,6 +47,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # importing the port first: a directory that holds this script alone fails here
@@ -46,10 +59,24 @@ from repro_torch.core.hardware import H100_SXM, ParallelismConfig  # noqa: E402
 from repro_torch.core.predictor import ExecutionPredictor  # noqa: E402
 from repro_torch.core.routing import BalancedRouting  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.wkv_chunk import wkv_chunked_plain  # noqa: E402
+from repro_torch.models import AxisRules, build_model, init_tree  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.common import tree_map  # noqa: E402
+from repro_torch.serving.engine import MiniEngine  # noqa: E402
 
 # The main path's own sizes: the oracle's accelerator limits and a sample count
 # that keeps the whole script well inside its time limit.
 TRAIN_SAMPLES, EVAL_SAMPLES, MAX_LEN, MAX_BATCH = 400, 120, 8192, 64
+CALIBRATE_KERNELS = ("flash_attention", "decode_attention", "grouped_gemm")
+
+# The served path: rwkv6-1.6b at full width, prompts whose lengths are
+# MiniEngine buckets (powers of two), so no pad token reaches the recurrent
+# state and the engine's tokens are those of a plain greedy loop.
+SERVE_ARCH = "rwkv6-1.6b"
+SERVE_OPTIONS = {"rwkv_impl": "chunked", "rwkv_chunk": 16}
+SERVE_PROMPTS = (256, 512, 1024, 2048, 512, 1024)
+SERVE_NEW, SERVE_SLOTS, SERVE_MAX_SEQ, PARITY_LEN = 32, 4, 4096, 2048
 
 # Published dense peaks of one H100 SXM at its full 700 W limit.
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -66,16 +93,23 @@ TOL_BF16 = dict(atol=2e-2, rtol=2e-2)
 TOL_BF16_ATTN = dict(atol=2e-2, rtol=2e-2, atol_per_row_rms=True)
 TOL_F32 = dict(atol=2e-5, rtol=2e-5)
 TOL_F32_GEMM_REL = 1e-4
+# WKV6: the reference's wkv test gates (tests/test_kernels.py), and its
+# prefill-against-decode gate for a whole model (tests/test_models_smoke.py)
+TOL_WKV_F32 = dict(atol=5e-5, rtol=5e-5)
+TOL_WKV_BF16 = dict(atol=5e-2, rtol=5e-2)
+TOL_PREFILL = dict(atol=2e-3, rtol=2e-3)
 
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:85",
     "decode_attention": "src/repro/kernels/decode_attention.py:66",
     "grouped_gemm": "src/repro/kernels/grouped_gemm.py:52",
+    "wkv_chunked": "src/repro/kernels/wkv_chunk.py:68",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "grouped_gemm": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+    "wkv_chunked": "src/repro_torch/kernels/csrc/wkv_chunk.cu",
 }
 
 FAILURES = []
@@ -334,17 +368,83 @@ def check_grouped(gen, rows: dict) -> None:
                       bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
 
+def wkv_inputs(gen, B, T, H, hs, dtype):
+    """r, k, v, decays in the reference test's (0.35, 0.95) band (f32, as the
+    model's decay chain gives them), u."""
+    r, k, v = (randn(gen, B, T, H, hs, dtype=dtype) for _ in range(3))
+    w = torch.rand((B, T, H, hs), generator=gen, device="cuda") * 0.6 + 0.35
+    return r, k, v, w, randn(gen, H, hs, dtype=torch.float32, scale=0.3)
+
+
+def check_wkv(gen, rows: dict) -> None:
+    name = "wkv_chunked"
+    errs = []
+    # the reference kernel test's shapes, then the served head size
+    for dtype, tol in ((torch.float32, TOL_WKV_F32), (torch.bfloat16, TOL_WKV_BF16)):
+        for B, T, H, hs, C in ((1, 16, 2, 16, 8), (2, 32, 3, 16, 8),
+                               (1, 48, 2, 32, 16), (2, 256, 4, 64, 16)):
+            r, k, v, w, u = wkv_inputs(gen, B, T, H, hs, dtype)
+            w = w.to(dtype)
+            got = ops.wkv_chunked(r, k, v, w, u, chunk=C)
+            errs.append(compare(name, f"({B},{T},{H},{hs}) C={C} {dtype}", got,
+                                ref.wkv_ref(r, k, v, w, u), tol))
+    # a non-zero initial state: y and the final state, against the plain
+    # chunked version and the sequential oracle
+    r, k, v, w, u = wkv_inputs(gen, 2, 128, 4, 64, torch.float32)
+    s0 = randn(gen, 2, 4, 64, 64, dtype=torch.float32, scale=0.3)
+    y, s = ops.wkv_chunked(r, k, v, w, u, chunk=16, state0=s0, return_state=True)
+    for label, (want_y, want_s) in (
+            ("plain", wkv_chunked_plain(r, k, v, w, u, chunk=16, state0=s0,
+                                        return_state=True)),
+            ("sequential", ref.wkv_ref(r, k, v, w, u, state0=s0,
+                                       return_state=True))):
+        errs.append(compare(name, f"state0 y vs {label}", y, want_y, TOL_WKV_F32))
+        errs.append(compare(name, f"state0 final state vs {label}", s, want_s,
+                            TOL_WKV_F32))
+
+    # timed as the served prefill calls it: one 2048-token request at full
+    # width, bf16 r/k/v, the f32 decays and output and a zero state in and out
+    B, T, H, hs, C = 1, PARITY_LEN, 32, 64, 16
+    r, k, v, w, u = wkv_inputs(gen, B, T, H, hs, torch.bfloat16)
+    s0 = torch.zeros((B, H, hs, hs), dtype=torch.float32, device="cuda")
+
+    def kernel():
+        return ops.wkv_chunked(r, k, v, w, u, chunk=C, state0=s0,
+                               return_state=True, out_dtype=torch.float32)
+
+    def plain():
+        return wkv_chunked_plain(r, k, v, w, u, chunk=C, state0=s0,
+                                 return_state=True, out_dtype=torch.float32)
+    (y, s), (want_y, want_s) = kernel(), plain()
+    errs.append(compare(name, "timed y", y, want_y, TOL_WKV_BF16))
+    errs.append(compare(name, "timed final state", s, want_s, TOL_WKV_BF16))
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain, reps=3)
+    # per (b, h) and chunk: r_dec @ S and the state carry (C x hs x hs each),
+    # the strictly lower intra-chunk r_dec k_dec^T and its product with v
+    # (C(C-1)/2 x hs each), the bonus; all f32 FMA
+    per_chunk = 4 * C * hs * hs + 2 * C * (C - 1) * hs + 4 * C * hs
+    b_ms, b_by = bound(B * H * (T // C) * per_chunk,
+                       nbytes(r, k, v, w, u, s0, y, s), torch.float32)
+    rows[name] = dict(shape=f"B={B} T={T} H={H} hs={hs} C={C}, bf16 r/k/v, "
+                            "f32 w/y/state",
+                      max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by,
+                      library_ms=None)   # no single PyTorch call computes WKV6
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows: dict = {}
-    for check in (check_flash, check_decode, check_grouped):
+    for check in (check_flash, check_decode, check_grouped, check_wkv):
         check(gen, rows)
         torch.cuda.empty_cache()
     say("kernels", ok=not FAILURES,
         tolerances={"bf16": TOL_BF16, "bf16_attention": TOL_BF16_ATTN,
                     "f32": TOL_F32,
-                    "f32_gemm_rel_to_max": TOL_F32_GEMM_REL},
+                    "f32_gemm_rel_to_max": TOL_F32_GEMM_REL,
+                    "wkv_f32": TOL_WKV_F32, "wkv_bf16": TOL_WKV_BF16},
         launches_so_far=ops.launch_counts(), rows=rows)
     stop_if_failed("kernels")
     return rows
@@ -367,8 +467,8 @@ def phase_calibrate(out_root: str) -> dict:
     counts = ops.launch_counts()
     if rc != 0:
         fail(f"calibrate exited with {rc}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in CALIBRATE_KERNELS:
+        if counts[name] <= 0:
             fail(f"calibrate never launched {name}")
     fidelity = {}
     if os.path.isfile(entry_path):
@@ -442,6 +542,157 @@ def phase_predict(out_root: str) -> None:
     stop_if_failed("predict")
 
 
+def _argmax(logits_row: torch.Tensor) -> int:
+    return int(np.argmax(logits_row.float().cpu().numpy()))   # as MiniEngine
+
+
+def greedy_tokens(engine: MiniEngine, prompt, n_new: int):
+    """A plain greedy loop over the engine's model: prefill the prompt alone,
+    then decode one token at a time.  Decode runs at the engine's batch width
+    with the request in every row, so each matrix product has the shape it
+    has inside the engine (a bf16 product's rounding depends on the kernel
+    cuBLAS picks for the shape); rows never mix."""
+    model, rows, dev = engine.model, engine.max_slots, engine.device
+    toks = torch.from_numpy(np.asarray(prompt, np.int64)[None]).to(dev)
+    logits, cache = model.prefill({"tokens": toks}, cache_len=engine.max_seq,
+                                  all_logits=True)
+    out = [_argmax(logits[0, len(prompt) - 1])]
+    cache = tree_map(lambda c: c.expand(rows, *c.shape[1:]).contiguous(), cache)
+    for pos in range(len(prompt), len(prompt) + n_new - 1):
+        tok = torch.full((rows, 1), out[-1], dtype=torch.int64, device=dev)
+        logits, cache = model.decode(
+            cache, tok, torch.full((rows,), pos, dtype=torch.int64, device=dev))
+        out.append(_argmax(logits[0, 0]))
+    return out
+
+
+def serve_parity(cfg) -> dict:
+    """(a) f32 prefill of one prompt through the kernel (chunked) and through
+    the plain sequential recurrence (scan), on the same weights.
+
+    Gated layer by layer: the scan runs the whole stack, and at every layer
+    the chunked block takes the scan's input to that layer, so its output,
+    its final state and the logits from its last output are held to the scan
+    at 2e-3.  Run free, 24 layers of random weights amplify f32 rounding:
+    the free-running difference is reported beside the model's own response
+    to a 1e-6 relative nudge of its embeddings, and not gated."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_tree(gen, build_model(cfg).pds(), torch.float32, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, PARITY_LEN), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks}
+    ax = {impl: AxisRules(None, dict(SERVE_OPTIONS, rwkv_impl=impl))
+          for impl in ("chunked", "scan")}
+    chunked = build_model(cfg, ax["chunked"], params=params)
+    scan = build_model(cfg, ax["scan"], params=params)
+
+    before = ops.launch_counts()["wkv_chunked"]
+    t0 = time.perf_counter()
+    free_logits, free_cache = chunked.prefill(batch, all_logits=True)
+    torch.cuda.synchronize()
+    wall = {"chunked": time.perf_counter() - t0}
+    launched = ops.launch_counts()["wkv_chunked"] - before
+    if launched != len(cfg.pattern):
+        fail(f"serve parity: the chunked prefill launched wkv_chunked "
+             f"{launched} times, not {len(cfg.pattern)}")
+
+    # the scan's own stack, as LM.prefill runs it, with the chunked block
+    # beside it at every layer
+    x = scan._inputs_to_x(batch)
+    state_errs, x_errs, scan_states = [], [], []
+    t_scan = 0.0
+    for i, (kind, p) in enumerate(zip(scan.kinds, scan.layers)):
+        clen = cfg.kv_cache_len(PARITY_LEN, kind)
+        t0 = time.perf_counter()
+        xs, cs = tfm.block_prefill(cfg, kind, p, x, ax["scan"], cache_len=clen)
+        torch.cuda.synchronize()
+        t_scan += time.perf_counter() - t0
+        xc, cc = tfm.block_prefill(cfg, kind, p, x, ax["chunked"], cache_len=clen)
+        x_errs.append(compare("serve", f"f32 layer {i} output", xc, xs, TOL_PREFILL))
+        state_errs.append(compare("serve", f"f32 layer {i} state", cc["state"],
+                                  cs["state"], TOL_PREFILL))
+        scan_states.append(cs["state"])
+        x = xs
+    wall["scan"] = t_scan
+    scan_logits = scan._logits(x)
+    logits_err = compare("serve", "f32 logits from the last layer",
+                         scan._logits(xc), scan_logits, TOL_PREFILL)
+
+    nudged = dict(params, embed=params["embed"] * (1 + 1e-6))
+    nudge_logits, _ = build_model(cfg, ax["chunked"], params=nudged).prefill(
+        batch, all_logits=True)
+    free = {"logits": float((free_logits - scan_logits).abs().max()),
+            "state": max(float((c["state"] - s).abs().max())
+                         for c, s in zip(free_cache["layers"], scan_states)),
+            "logits_after_1e-6_nudge": float((nudge_logits - free_logits).abs().max())}
+    return {"tokens": PARITY_LEN,
+            "max_abs_err_per_layer": {"output": max(x_errs),
+                                      "state": max(state_errs),
+                                      "logits": logits_err},
+            "free_running_max_abs_diff": free,
+            "prefill_wall_s": wall,
+            "logits_finite": bool(torch.isfinite(free_logits).all())}
+
+
+def phase_serve() -> dict:
+    cfg = get_config(SERVE_ARCH)
+    with torch.no_grad():
+        parity = serve_parity(cfg)
+    torch.cuda.empty_cache()
+    stop_if_failed("serve")
+
+    # (b) bf16 MiniEngine with the kernel on the prefill path
+    t0 = time.perf_counter()
+    eng = MiniEngine(cfg, max_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, seed=0,
+                     dtype=torch.bfloat16, options=SERVE_OPTIONS)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_PROMPTS]
+    eng.submit(prompts, SERVE_NEW)
+    eng.run()                                   # warm pass
+    eng.step_log.clear()
+    ops.reset_launch_counts()
+    reqs = eng.submit(prompts, SERVE_NEW)
+    report = eng.run()                          # measured pass
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+
+    prefills = [s for s in eng.step_log if s["kind"] == "prefill"]
+    decodes = [s["dur"] for s in eng.step_log if s["kind"] == "decode"]
+    want = len(cfg.pattern) * len(prefills)
+    if len(prefills) != len(SERVE_PROMPTS) or counts["wkv_chunked"] != want:
+        fail(f"serve: {len(prefills)} prefills launched wkv_chunked "
+             f"{counts['wkv_chunked']} times, not {len(cfg.pattern)} each")
+    mismatched = []
+    with torch.no_grad():
+        for req in reqs:
+            want_toks = greedy_tokens(eng, req.prompt, SERVE_NEW)
+            if req.tokens != want_toks:
+                at = next(i for i, (a, b) in enumerate(zip(req.tokens, want_toks))
+                          if a != b) if len(req.tokens) == len(want_toks) else -1
+                mismatched.append({"rid": req.rid, "prompt": len(req.prompt),
+                                   "first_difference": at})
+    if mismatched:
+        fail(f"serve: engine tokens differ from the greedy loop: {mismatched}")
+    say("serve", ok=not FAILURES, arch=SERVE_ARCH, layers=len(cfg.pattern),
+        d_model=cfg.d_model, vocab=cfg.vocab_size, options=SERVE_OPTIONS,
+        parity_f32=parity, dtype="bf16", slots=SERVE_SLOTS,
+        max_seq=SERVE_MAX_SEQ, prompts=list(SERVE_PROMPTS),
+        new_tokens=SERVE_NEW, engine_init_s=init_s,
+        launches=counts, greedy_equal=not mismatched,
+        throughput_tok_s=report["throughput_tok_s"],
+        ttft_mean_s=report["ttft_mean_s"], tpot_mean_s=report["tpot_mean_s"],
+        decode_steps=report["decode_steps"], duration_s=report["duration_s"],
+        output_tokens=report["output_tokens"],
+        prefill_step_s=[{"tokens": s["tokens"], "s": s["dur"]} for s in prefills],
+        decode_step_s={"mean": statistics.fmean(decodes),
+                       "median": statistics.median(decodes),
+                       "min": min(decodes), "max": max(decodes)},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    stop_if_failed("serve")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ptxas", action="store_true",
@@ -460,6 +711,7 @@ def main(argv=None) -> int:
     out_root = os.path.join(ROOT, "build", "calib")
     counts = phase_calibrate(out_root)
     phase_predict(out_root)
+    counts["wkv_chunked"] = phase_serve()["wkv_chunked"]
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],

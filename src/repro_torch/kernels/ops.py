@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import grouped_gemm as _gg
+from repro_torch.kernels import wkv_chunk as _wkv
 
 
 def _pad_hd(x: torch.Tensor, align: int = 128):
@@ -59,11 +60,18 @@ def grouped_gemm(x, w, group_sizes, *, bm=128, bn=128, bkk=512):
     return _gg.grouped_gemm(x, w, group_sizes)
 
 
+def wkv_chunked(r, k, v, w, u, *, chunk=16, state0=None, return_state=False,
+                out_dtype=None):
+    return _wkv.wkv_chunked(r, k, v, w, u, chunk=chunk, state0=state0,
+                            return_state=return_state, out_dtype=out_dtype)
+
+
 #: every kernel wrapper, by name: the launch counters live on these functions
 KERNELS = {
     "flash_attention": _fa.flash_attention,
     "decode_attention": _dec.decode_attention,
     "grouped_gemm": _gg.grouped_gemm,
+    "wkv_chunked": _wkv.wkv_chunked,
 }
 
 

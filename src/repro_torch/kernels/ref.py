@@ -10,3 +10,6 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
 from repro_torch.kernels.grouped_gemm import (  # noqa: F401
     grouped_gemm_plain as grouped_gemm_ref,
 )
+from repro_torch.kernels.wkv_chunk import (  # noqa: F401
+    wkv_sequential as wkv_ref,
+)

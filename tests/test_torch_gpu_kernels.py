@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.convert import from_numpy
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.wkv_chunk import wkv_chunked_plain
 
 pytestmark = pytest.mark.gpu
 RNG = np.random.default_rng(0)
@@ -99,6 +100,61 @@ def test_grouped_gemm_kernel(cuda, E, C, din, dout, dtype):
         close(got, ref.grouped_gemm_ref(x, w, gs), dtype)
         for e in range(E):      # rows beyond group size must be exactly zero
             assert bool((got[e, int(sizes[e]):] == 0).all())
+
+
+def wkv_inputs(B, T, H, hs):
+    """r, k, v, decays in the reference test's (0.35, 0.95) band, u."""
+    r, k, v = arr(B, T, H, hs), arr(B, T, H, hs), arr(B, T, H, hs)
+    w = (1 / (1 + np.exp(-RNG.normal(size=(B, T, H, hs)))) * 0.6
+         + 0.35).astype(np.float32)
+    return r, k, v, w, arr(H, hs, scale=0.3)
+
+
+WKV_TOL = {"f32": dict(atol=5e-5, rtol=5e-5), "bf16": dict(atol=5e-2, rtol=5e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,T,H,hs,chunk", [
+    (1, 16, 2, 16, 8),
+    (2, 32, 3, 16, 8),
+    (1, 48, 2, 32, 16),
+    (2, 64, 2, 64, 16),       # the served head size
+    (1, 40, 3, 24, 8),        # a ragged column tile
+])
+def test_wkv_chunked_kernel(cuda, B, T, H, hs, chunk, dtype):
+    r, k, v, w, u = (from_numpy(a, cuda, DTYPES[dtype])
+                     for a in wkv_inputs(B, T, H, hs))
+    before = ops.launch_counts()["wkv_chunked"]
+    got = ops.wkv_chunked(r, k, v, w, u, chunk=chunk)
+    assert ops.launch_counts()["wkv_chunked"] == before + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.wkv_ref(r, k, v, w, u).float().cpu().numpy(),
+                               **WKV_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,T,H,hs,chunk", [(2, 32, 3, 16, 8), (1, 64, 2, 64, 16)])
+def test_wkv_chunked_kernel_state_and_strides(cuda, B, T, H, hs, chunk):
+    """A non-zero initial state, the final state, inputs read through the
+    strides of views, and f32 decays and output beside bf16 streams."""
+    r, k, v, w, u = (from_numpy(a, cuda) for a in wkv_inputs(B, T, H, hs))
+    s0 = from_numpy(arr(B, H, hs, hs, scale=0.3), cuda)
+    wide = torch.cat([r, k, v], dim=-1)             # views with a row stride of 3*hs
+    rv, kv, vv = wide[..., :hs], wide[..., hs:2 * hs], wide[..., 2 * hs:]
+    y, s = ops.wkv_chunked(rv, kv, vv, w, u, chunk=chunk, state0=s0,
+                           return_state=True)
+    want_y, want_s = ref.wkv_ref(r, k, v, w, u, state0=s0, return_state=True)
+    for got, want in ((y, want_y), (s, want_s)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **WKV_TOL["f32"])
+    rb, kb, vb = (x.to(torch.bfloat16) for x in (r, k, v))
+    y, s = ops.wkv_chunked(rb, kb, vb, w, u, chunk=chunk, state0=s0,
+                           return_state=True, out_dtype=torch.float32)
+    assert y.dtype == torch.float32
+    want_y, want_s = wkv_chunked_plain(rb, kb, vb, w, u, chunk=chunk, state0=s0,
+                                       return_state=True, out_dtype=torch.float32)
+    for got, want in ((y, want_y), (s, want_s)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **WKV_TOL["f32"])
 
 
 def test_misaligned_input_raises(cuda):

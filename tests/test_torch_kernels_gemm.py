@@ -101,5 +101,7 @@ def test_launch_counters_count_kernel_launches_only():
     x, w = arr(2, 8, 16), arr(2, 16, 8)
     ops.grouped_gemm(torch.from_numpy(x), torch.from_numpy(w),
                      torch.tensor([8, 3], dtype=torch.int32))
+    r = torch.from_numpy(arr(1, 16, 2, 8))
+    ops.wkv_chunked(r, r, r, torch.full_like(r, 0.5), torch.zeros((2, 8)))
     assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0,
-                                   "grouped_gemm": 0}
+                                   "grouped_gemm": 0, "wkv_chunked": 0}
