@@ -13,12 +13,20 @@ line each:
 1. ``env``        the card as ``nvidia-smi`` names it, torch and CUDA versions
 2. ``build``      compiles ``src/repro_torch/kernels/csrc/*.cu``
 3. ``kernels``    every kernel against its plain PyTorch version on the card,
-                  f32 and bf16, then timed at the shape its path gives it
+                  f32 and bf16, then timed at the shape its path gives it;
+                  the two attention kernels at every shape ``calibrate``'s
+                  timed cells give them (prefills of 512, 2048 and 8192
+                  tokens; decode of one 8192-token row, of 32 mixed rows and
+                  of the skewed regime), each beside its bound and SDPA
 4. ``calibrate``  the CLI's ``calibrate`` with the ``kernels`` oracle; the
                   three kernels it prices must each be launched
 5. ``predict``    load the artifacts, price prefill and decode steps, and hold
                   the fitted parts to the fitted models' own predictions
-6. ``serve``      rwkv6-1.6b, random weights from a seed: (a) f32 prefill of
+6. ``oracle_clock`` every shape of a second ``calibrate`` run timed by the
+                  oracle's CUDA events and by ``device_ms``; held-out MAPE of
+                  the fit on each clock over the same shapes (a reading, no
+                  gate on the MAPE)
+7. ``serve``      rwkv6-1.6b, random weights from a seed: (a) f32 prefill of
                   one 2048-token prompt through the kernel and through the
                   plain sequential recurrence, logits and every layer's state
                   within 2e-3; (b) bf16 ``MiniEngine`` with 4 slots serving 6
@@ -52,7 +60,7 @@ import torch  # noqa: E402
 
 # importing the port first: a directory that holds this script alone fails here
 from repro_torch.api import cli  # noqa: E402
-from repro_torch.calib import load_calibrated_ops  # noqa: E402
+from repro_torch.calib import calibrate, load_calibrated_ops  # noqa: E402
 from repro_torch.calib.oracle import KernelOracle  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.hardware import H100_SXM, ParallelismConfig  # noqa: E402
@@ -151,6 +159,31 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Mean milliseconds per call that the card takes for ``reps`` calls
+    queued back to back, after one warm-up: a spin kernel holds the card
+    while the host queues them, so the events around them see the card's
+    time and none of the host's launch path.  The spin is doubled until the
+    card is still in it when the last call has been queued."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22                          # about 2 ms at the H100's clock
+    for _ in range(8):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        caught_up = start.query()             # the card reached the calls first
+        torch.cuda.synchronize()
+        if not caught_up:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise RuntimeError("device_ms: the host never queued the calls ahead of the card")
+
+
 def compare(name: str, case: str, got, want, tol=None, rel_to_max=None) -> float:
     """Hold ``got`` to ``want``; returns the largest absolute difference."""
     torch.cuda.synchronize()
@@ -234,26 +267,7 @@ def check_flash(gen, rows: dict) -> None:
     errs.append(compare(name, "hd112 f32", got,
                         ref.flash_attention_ref(q, k, k, causal=True), TOL_F32))
 
-    # timed at the shape the oracle hands the kernel: one request, bf16
-    S = KernelOracle(H100_SXM)._round(2048)
-    dtype = torch.bfloat16
-    q = randn(gen, 1, S, H, hd, dtype=dtype)
-    k = randn(gen, 1, S, K, hd, dtype=dtype)
-    got = ops.flash_attention(q, k, k, causal=True)
-    errs.append(compare(name, f"timed S={S}", got,
-                        ref.flash_attention_ref(q, k, k, causal=True),
-                        TOL_BF16_ATTN))
-    ms = time_ms(lambda: ops.flash_attention(q, k, k, causal=True))
-    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, k, causal=True), reps=3)
-    qt, kt = q.transpose(1, 2), k.transpose(1, 2)   # views: K heads, no copy
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, kt, is_causal=True, enable_gqa=True))
-    pairs = S * (S + 1) // 2
-    # v is k's own memory here, as in the oracle's call: its bytes count once
-    b_ms, b_by = bound(4.0 * hd * H * pairs, nbytes(q, k, got), dtype)
-    rows[name] = dict(shape=f"B=1 S=T={S} H={H} K={K} hd={hd} causal bf16",
-                      max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                      bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    rows[name] = dict(max_abs_err=max(errs))   # timed in time_attention
 
 
 def check_decode(gen, rows: dict) -> None:
@@ -281,31 +295,118 @@ def check_decode(gen, rows: dict) -> None:
         errs.append(compare(name, f"H={Hh} K={Kk} hd={hdd} f32", got,
                             ref.decode_attention_ref(q, k, v, ln), TOL_F32))
 
-    # timed as the oracle calls it: k passed as v, lengths below the bucket
-    dtype = torch.bfloat16
-    Tb = KernelOracle(H100_SXM)._round(T)
-    q = randn(gen, B, H, hd, dtype=dtype)
-    k = randn(gen, B, Tb, K, hd, dtype=dtype)
-    got = ops.decode_attention(q, k, k, lens)
-    errs.append(compare(name, f"timed B={B} T={Tb}", got,
-                        ref.decode_attention_ref(q, k, k, lens),
-                        TOL_BF16_ATTN))
-    ms = time_ms(lambda: ops.decode_attention(q, k, k, lens))
-    plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, k, lens), reps=3)
-    qt, kt = q[:, :, None, :], k.transpose(1, 2)    # views: K heads, no copy
-    mask = (torch.arange(Tb, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, kt, attn_mask=mask, enable_gqa=True))
-    total = int(lens.sum())
-    # v is k's own memory here, as in the oracle's call: the valid cache's
-    # bytes count once
-    kv_bytes = total * K * hd * k.element_size()
-    b_ms, b_by = bound(4.0 * hd * H * total,
-                       kv_bytes + nbytes(q, got, lens), dtype)
-    rows[name] = dict(shape=f"B={B} T={Tb} H={H} K={K} hd={hd} "
-                            f"sum(lengths)={total} bf16",
-                      max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                      bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    rows[name] = dict(max_abs_err=max(errs))   # timed in time_attention
+
+
+def flash_shape(S: int) -> str:
+    return f"B=1 S=T={S} H=32 K=8 hd=128 causal bf16"
+
+
+def time_attention() -> list:
+    """The two attention kernels timed at the shapes ``calibrate`` gives them
+    (mixtral-8x7b: 32 heads, 8 KV heads, hd 128, bf16, k passed as v as the
+    oracle passes it), each beside its roofline bound and SDPA's time, by
+    CUDA events around back-to-back calls (``ms``, what the oracle sees; the
+    host's launch path sets it where the kernel is short) and by
+    ``device_ms`` (the same calls queued behind a spin: the card's time), and
+    held to its plain version (at the largest prefill on 8 of the 32 heads,
+    which keeps the plain version's scores in memory).  Inputs come from a
+    generator of their own, so two trees timed in two processes see the same
+    tensors."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    H, K, hd, dtype = 32, 8, 128, torch.bfloat16
+    out = []
+    for n in FLASH_TIMED:
+        S = KernelOracle(H100_SXM)._round(n)
+        q = randn(gen, 1, S, H, hd, dtype=dtype)
+        k = randn(gen, 1, S, K, hd, dtype=dtype)
+        got = ops.flash_attention(q, k, k, causal=True)
+        heads = H if S <= 4096 else 8         # 8 query heads = KV heads 0-1
+        err = compare("flash_attention", f"timed S={S}", got[:, :, :heads],
+                      ref.flash_attention_ref(q[:, :, :heads],
+                                              k[:, :, :heads * K // H],
+                                              k[:, :, :heads * K // H],
+                                              causal=True), TOL_BF16_ATTN)
+        ms = time_ms(lambda: ops.flash_attention(q, k, k, causal=True))
+        today = n == TODAY["flash_attention"]
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, k, causal=True),
+                           reps=3) if today else None
+        qt, kt = q.transpose(1, 2), k.transpose(1, 2)   # views: K heads, no copy
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, kt, is_causal=True, enable_gqa=True)
+        library_ms = time_ms(sdpa)
+        dev = dict(device_ms=device_ms(lambda: ops.flash_attention(q, k, k, causal=True)),
+                   library_device_ms=device_ms(sdpa))
+        pairs = S * (S + 1) // 2
+        # v is k's own memory here, as in the oracle's call: its bytes count once
+        b_ms, b_by = bound(4.0 * hd * H * pairs, nbytes(q, k, got), dtype)
+        out.append(dict(kernel="flash_attention", shape=flash_shape(S), today=today,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by,
+                        library_ms=library_ms, **dev))
+        del q, k, got
+    for label, B, lens_of in DECODE_TIMED:
+        lens = lens_of(gen)
+        T = KernelOracle(H100_SXM)._round(int(lens.max()))
+        q = randn(gen, B, H, hd, dtype=dtype)
+        k = randn(gen, B, T, K, hd, dtype=dtype)
+        got = ops.decode_attention(q, k, k, lens)
+        err = compare("decode_attention", f"timed {label}", got,
+                      ref.decode_attention_ref(q, k, k, lens), TOL_BF16_ATTN)
+        ms = time_ms(lambda: ops.decode_attention(q, k, k, lens))
+        today = label == TODAY["decode_attention"]
+        plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, k, lens),
+                           reps=3) if today else None
+        qt, kt = q[:, :, None, :], k.transpose(1, 2)    # views: K heads, no copy
+        mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, kt, attn_mask=mask, enable_gqa=True)
+        library_ms = time_ms(sdpa)
+        dev = dict(device_ms=device_ms(lambda: ops.decode_attention(q, k, k, lens)),
+                   library_device_ms=device_ms(sdpa))
+        total = int(lens.sum())
+        # v is k's own memory here, as in the oracle's call: the valid cache's
+        # bytes count once
+        kv_bytes = total * K * hd * k.element_size()
+        b_ms, b_by = bound(4.0 * hd * H * total, kv_bytes + nbytes(q, got, lens), dtype)
+        out.append(dict(kernel="decode_attention", today=today,
+                        shape=f"{label}: B={B} T={T} H={H} K={K} hd={hd} "
+                              f"sum(lengths)={total} bf16",
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by,
+                        library_ms=library_ms, **dev))
+        del q, k, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mixed_lengths(gen):
+    """32 lengths in [1, 4096], three of them at the edges (1, 4096, 65)."""
+    lens = torch.randint(1, 4097, (32,), generator=gen, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
+    lens[:3] = torch.tensor([1, 4096, 65], dtype=torch.int32, device="cuda")
+    return lens
+
+
+def _skewed_lengths(gen):
+    """The calibration grid's skewed regime: one long row, many of 16-128."""
+    lens = torch.randint(16, 129, (64,), generator=gen, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
+    lens[0] = 6000
+    return lens
+
+
+FLASH_TIMED = (512, 2048, 8192)     # prompt lengths; the oracle buckets them
+DECODE_TIMED = (  # (label, batch, lengths from the generator)
+    ("one row", 1, lambda gen: torch.tensor([8192], dtype=torch.int32, device="cuda")),
+    ("mixed", 32, _mixed_lengths),
+    ("skewed", 64, _skewed_lengths),
+)
+# the shapes the final kernels line reports, as earlier slices timed them
+TODAY = {"flash_attention": 2048, "decode_attention": "mixed"}
 
 
 def check_grouped(gen, rows: dict) -> None:
@@ -440,7 +541,15 @@ def phase_kernels() -> dict:
     for check in (check_flash, check_decode, check_grouped, check_wkv):
         check(gen, rows)
         torch.cuda.empty_cache()
-    say("kernels", ok=not FAILURES,
+    shapes = time_attention()
+    for row in shapes:     # the final line keeps one row per kernel, at today's shape
+        name = row["kernel"]
+        if row["today"]:
+            rows[name].update({key: row[key] for key in (
+                "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")},
+                max_abs_err=max(rows[name]["max_abs_err"], row["max_abs_err"]))
+    say("kernels", ok=not FAILURES, attention_shapes=shapes,
         tolerances={"bf16": TOL_BF16, "bf16_attention": TOL_BF16_ATTN,
                     "f32": TOL_F32,
                     "f32_gemm_rel_to_max": TOL_F32_GEMM_REL,
@@ -540,6 +649,54 @@ def phase_predict(out_root: str) -> None:
                       "moe_expert_gemm_s": bd.parts["moe_expert_gemm"]})
     say("predict", ok=not FAILURES, layers=n_layers, steps=steps)
     stop_if_failed("predict")
+
+
+class TwoClockOracle(KernelOracle):
+    """The ``kernels`` oracle with a second clock: every shape it measures is
+    timed as the oracle times it (a pair of CUDA events around each call, the
+    host's launch path included) and by ``device_ms`` (the card's time alone).
+    It answers with the events; ``pairs`` keeps both, in the order the shapes
+    were measured, which is the order of ``_cache``."""
+
+    def __init__(self, hw, **kwargs):
+        super().__init__(hw, **kwargs)
+        self.pairs = []
+
+    def _time(self, fn, *args) -> float:
+        events_s = super()._time(fn, *args)
+        self.pairs.append((events_s, device_ms(lambda: fn(*args), reps=self.reps) * 1e-3))
+        return events_s
+
+
+def phase_oracle_clock() -> None:
+    """``calibrate``'s fit on the oracle's clock and on the card's, over one
+    set of shapes: each is timed both ways, the models are fitted and scored
+    on the event times, then refitted and rescored on the device times."""
+    orc = TwoClockOracle(H100_SXM)
+    kw = dict(model="mixtral-8x7b", hardware="H100-SXM", oracle=orc,
+              n_train=TRAIN_SAMPLES, n_eval=EVAL_SAMPLES, max_len=MAX_LEN,
+              max_batch=MAX_BATCH, out_root=None)
+    by_events = calibrate(**kw)
+    measured = list(zip(orc._cache, orc.pairs))
+    shapes = {}
+    for kind in ("prefill", "decode", "grouped"):
+        ev = np.array([e for key, (e, _) in measured if key[0] == kind])
+        dv = np.array([d for key, (_, d) in measured if key[0] == kind])
+        if not (ev.size and (dv > 0).all()):
+            fail(f"oracle_clock: no {kind} shape, or a device time of 0")
+            continue
+        ratio = ev / dv
+        shapes[kind] = dict(n=int(ev.size),
+                            device_ms_p50=float(np.median(dv)) * 1e3,
+                            events_minus_device_ms_p50=float(np.median(ev - dv)) * 1e3,
+                            events_over_device_p50=float(np.median(ratio)),
+                            events_over_device_p90=float(np.percentile(ratio, 90)))
+    stop_if_failed("oracle_clock")
+    orc._cache = {key: dev for key, (_, dev) in measured}
+    by_device = calibrate(**kw)            # every shape is cached: no launch
+    say("oracle_clock", ok=not FAILURES, shapes=shapes,
+        fidelity={"events": by_events.fidelity, "device": by_device.fidelity})
+    stop_if_failed("oracle_clock")
 
 
 def _argmax(logits_row: torch.Tensor) -> int:
@@ -711,6 +868,7 @@ def main(argv=None) -> int:
     out_root = os.path.join(ROOT, "build", "calib")
     counts = phase_calibrate(out_root)
     phase_predict(out_root)
+    phase_oracle_clock()
     counts["wkv_chunked"] = phase_serve()["wkv_chunked"]
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],

@@ -112,7 +112,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, i, i, i, i, i, i, i, strides, f, i, i, p]
     lib.frontier_flash_attention.restype = i
     lib.frontier_decode_attention.argtypes = [
-        p, p, p, p, p, i, i, i, i, i, i, strides, f, p]
+        p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, strides, f, p]
     lib.frontier_decode_attention.restype = i
     lib.frontier_grouped_gemm.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.frontier_grouped_gemm.restype = i

@@ -1,8 +1,8 @@
 // Shared device helpers for the hand-written Hopper kernels (sm_90a).
 //
 // Every kernel accumulates in f32.  f32 inputs go through plain FMA so the
-// result is true f32 (no TF32); bf16 inputs go through the tensor cores with
-// mma.sync m16n8k16 (f32 accumulate).
+// result is true f32 (no TF32); bf16 products go through the tensor cores
+// (mma.sync m16n8k16, or wgmma in flash attention), f32 accumulate.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,4 +89,23 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One 16-byte asynchronous copy, global -> shared.  With `valid` false no
+// byte is read and the 16 destination bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem_dst)),
+               "l"(gmem_src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }

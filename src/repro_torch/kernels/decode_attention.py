@@ -6,23 +6,56 @@ positions at or past ``lengths[b]`` masked, KV tiles past the length skipped,
 and the ``G = H/K`` query heads of a group sharing each KV tile.
 
 On an H100 the work is bound by bytes: every key and value is read once and
-used for ``4 G`` operations per element, far below the card's ~295 FLOP per
-byte, so the least time is the valid cache's bytes over 3.35 TB/s.  The design
-reads each KV tile from device memory once per group (one block per
-``(batch, kv-head)``, all ``G`` query rows together), reads ``lengths[b]``
-inside the block so the loop ends at the true length, and widens tiles to f32
-in shared memory so one FMA path serves f32 and bf16.  Its limit:
-``B * K`` blocks leave most of the 132 SMs idle at small batch; a split-KV
-pass is the remedy and is not done here.  Source: ``csrc/decode_attention.cu``.
+used for ``4 G`` operations, far below the card's ~295 FLOP per byte, so the
+least time is the valid cache's bytes over 3.35 TB/s.  The TPU kernel walks a
+row's tiles in order on one core; here that walk is split over the keys
+(flash-decoding): a block owns ``span`` keys of one ``(batch, kv-head)`` and
+all ``G`` query rows, so each KV byte is read once per group, and a second
+small kernel merges the splits' ``(m, l, o)`` in a fixed order.  The blocks
+read ``lengths[b]`` themselves: a split past the length returns at once, and
+the host never reads ``lengths`` (that would synchronise the stream), so the
+split count follows from ``B``, ``K`` and the capacity ``T`` alone
+(:func:`decode_splits`).  Inside a split, K/V tiles stream through a
+``cp.async`` double buffer in their own dtype and each warp keeps its own
+online softmax over a quarter of every tile.  Source:
+``csrc/decode_attention.cu``.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import NEG_INF
+
+SPLIT_MIN_KEYS = 128    # the fewest keys a split owns
+SPLIT_ALIGN = 64        # a split's span is a whole number of the kernel's bf16 tiles
+BLOCKS_PER_SM = 32      # the grid that counts as filling the card
+
+
+def decode_splits(B: int, K: int, T: int, n_sm: int = 132) -> int:
+    """How many key splits the decode kernel runs for a (B, T, K) cache.
+
+    From the shapes alone, never from ``lengths``.  One split when the
+    ``B * K`` blocks already fill the card (``BLOCKS_PER_SM`` per SM: lengths
+    are unknown and skewed, so more blocks than SMs balance a long row against
+    short ones); otherwise enough splits to reach that grid, at most one per
+    ``SPLIT_MIN_KEYS`` keys of capacity.  Always at least 1, and
+    ``split_span(T, n)`` keys per split cover ``T`` with exactly ``n`` splits.
+    """
+    rows, target = B * K, BLOCKS_PER_SM * n_sm
+    if rows >= target or T <= SPLIT_MIN_KEYS:
+        return 1
+    want = min(math.ceil(target / rows), math.ceil(T / SPLIT_MIN_KEYS))
+    return math.ceil(T / split_span(T, want))
+
+
+def split_span(T: int, splits: int) -> int:
+    """Keys per split: ``T / splits`` rounded up to a multiple of ``SPLIT_ALIGN``."""
+    return max(1, math.ceil(math.ceil(T / splits) / SPLIT_ALIGN) * SPLIT_ALIGN)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,6 +106,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:     # nothing to compute: no launch, no count
         return out
+    splits = decode_splits(B, K, T, _n_sm(q.device))
+    span = split_span(T, splits)
+    part_o = part_ml = None
+    if splits > 1:           # f32 partials of every split: o (hd values), then (m, l)
+        rows = splits * B * H
+        part = torch.empty(rows * (hd + 2), dtype=torch.float32, device=q.device)
+        part_o = part.data_ptr()
+        part_ml = part_o + rows * hd * part.element_size()
     strides = _build.stride_array(
         q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), k.stride(2),
@@ -83,11 +124,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.frontier_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lens.data_ptr(), code, B, T, H, K, hd, strides, hd ** -0.5, stream)
+            lens.data_ptr(), part_o, part_ml, code, B, T, H, K, hd, splits,
+            span, strides, hd ** -0.5, stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out
 
 
-#: kernel launches made through this wrapper (plain-version calls not counted)
+@functools.lru_cache(maxsize=None)
+def _n_sm(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+#: kernel launches made through this wrapper (one per call that launches,
+#: whether or not the combine pass ran; plain-version calls not counted)
 decode_attention.launches = 0

@@ -11,9 +11,11 @@ card's ~295 FLOP per byte.  The design therefore keeps the running
 ``(m, l, acc)`` in registers for the whole KV loop (one block per
 ``(batch, head, q-tile)``; the TPU kernel's sequential innermost grid axis
 becomes that loop), makes the causal and window tile skips the loop's bounds,
-masks ragged ``S`` and ``T`` on load from the caller's strided tensors instead
-of padding and transposing copies, and feeds bf16 tiles to the tensor cores
-(``mma.sync`` m16n8k16, f32 accumulate).  f32 inputs take an FMA path so the
+and masks ragged ``S`` and ``T`` on load from the caller's strided tensors
+instead of padding and transposing copies.  bf16 runs on Hopper's warpgroup
+tensor-core products (``wgmma``): 128-row q-tiles as two warpgroups, K/V tiles
+arriving through a ``cp.async`` ring while the current tile is multiplied,
+causal q-tiles scheduled heaviest first.  f32 inputs take an FMA path so the
 result is true f32.  Source: ``csrc/flash_attention.cu``.
 """
 from __future__ import annotations

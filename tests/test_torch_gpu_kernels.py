@@ -51,6 +51,11 @@ def close(got, want, name):
     (1, 32, 32, 8, 8, 112, True, 8),
     (1, 16, 48, 4, 2, 64, True, 0),
     (1, 200, 333, 4, 2, 256, True, 70),
+    (2, 300, 517, 8, 2, 128, True, 0),      # S no multiple of 128, S != T, B = 2
+    (1, 400, 400, 4, 2, 128, True, 100),    # window across q-tile and KV-tile edges
+    (2, 333, 333, 4, 1, 128, True, 130),
+    (1, 400, 400, 4, 1, 256, True, 0),      # hd 256 over 4 q-tiles
+    (1, 300, 300, 8, 2, 256, False, 0),
 ])
 def test_flash_attention_kernel(cuda, B, S, T, H, K, hd, causal, window, dtype):
     q, k, v = (from_numpy(a, cuda, DTYPES[dtype]) for a in
@@ -80,6 +85,49 @@ def test_decode_attention_kernel(cuda, B, T, H, K, hd, dtype):
         lens = torch.full((B,), fill, dtype=torch.int32, device=cuda)
         close(ops.decode_attention(q, k, v, lens),
               ref.decode_attention_ref(q, k, v, lens), dtype)
+
+
+def _split_lengths(case, B, T, K):
+    """Lengths that put the edge of a row on and around the split edges."""
+    from repro_torch.kernels.decode_attention import decode_splits, split_span
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = decode_splits(B, K, T, n_sm)
+    span = split_span(T, splits)
+    assert splits > 1, "every case here must run the combine pass"
+    if case == "edges":
+        base = [span - 1, span, span + 1, 2 * span, T - 1, T]
+        return np.resize(np.asarray(base), B)
+    if case == "one":
+        return np.full(B, 1)
+    if case == "full":
+        return np.full(B, T)
+    if case == "skewed":        # one long row, many of 16-128
+        lens = RNG.integers(16, 129, B)
+        lens[0] = T - 5
+        return lens
+    return RNG.integers(1, T + 1, B)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case,B,T,H,K,hd", [
+    ("random", 1, 5000, 32, 8, 128),     # B = 1 over many splits
+    ("edges", 6, 3000, 32, 8, 128),
+    ("one", 2, 6000, 16, 4, 128),        # every split but the first empty
+    ("full", 2, 2000, 8, 1, 256),
+    ("skewed", 16, 7000, 32, 8, 128),
+    ("edges", 3, 1500, 28, 4, 128),      # G = 7
+])
+def test_decode_attention_kernel_splits(cuda, case, B, T, H, K, hd, dtype):
+    """Split-KV decode: the combine pass, empty splits and rows whose end
+    falls on, before and after a split edge."""
+    q, k, v = (from_numpy(a, cuda, DTYPES[dtype]) for a in
+               (arr(B, H, hd), arr(B, T, K, hd), arr(B, T, K, hd)))
+    lens = torch.from_numpy(_split_lengths(case, B, T, K).astype(np.int32)).to(cuda)
+    before = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(q, k, v, lens)
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    close(got, ref.decode_attention_ref(q, k, v, lens), dtype)
+    assert torch.equal(got, ops.decode_attention(q, k, v, lens))   # no atomics
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
