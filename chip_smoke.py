@@ -13,11 +13,16 @@ line each:
 1. ``env``        the card as ``nvidia-smi`` names it, torch and CUDA versions
 2. ``build``      compiles ``src/repro_torch/kernels/csrc/*.cu``
 3. ``kernels``    every kernel against its plain PyTorch version on the card,
-                  f32 and bf16, then timed at the shape its path gives it;
-                  the two attention kernels at every shape ``calibrate``'s
-                  timed cells give them (prefills of 512, 2048 and 8192
-                  tokens; decode of one 8192-token row, of 32 mixed rows and
-                  of the skewed regime), each beside its bound and SDPA
+                  f32 and bf16, then timed at every shape its path gives it,
+                  each beside its bound, its plain version and a library
+                  call where one exists, by CUDA events and by ``device_ms``:
+                  the attention kernels at ``calibrate``'s prefills of 512,
+                  2048 and 8192 tokens and decodes of one 8192-token row, 32
+                  mixed rows and the skewed regime (``time_attention``,
+                  beside SDPA); the grouped GEMM at three capacities of
+                  ``calibrate``'s grid (``time_grouped``, beside
+                  ``torch.bmm``); ``wkv_chunked`` at the served prefills of
+                  256-2048 tokens (``time_wkv``)
 4. ``calibrate``  the CLI's ``calibrate`` with the ``kernels`` oracle; the
                   three kernels it prices must each be launched
 5. ``predict``    load the artifacts, price prefill and decode steps, and hold
@@ -444,29 +449,57 @@ def check_grouped(gen, rows: dict) -> None:
                         ref.grouped_gemm_ref(x, w, g3), TOL_BF16))
     zeros_past("odd widths bf16", got, [50, 0, 17])
 
-    # timed as the oracle calls it: capacity is the bucket of the largest group
-    dtype = torch.bfloat16
-    sizes = [2048, 0, 1500, 37, 1024, 2047, 600, 256]
-    C = KernelOracle(H100_SXM)._round(max(sizes))
-    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-    x = randn(gen, E, C, din, dtype=dtype)
-    w = randn(gen, E, din, dout, dtype=dtype, scale=0.05)
-    got = ops.grouped_gemm(x, w, gs)
-    errs.append(compare(name, f"timed C={C}", got,
-                        ref.grouped_gemm_ref(x, w, gs), TOL_BF16))
-    zeros_past(f"timed C={C}", got, sizes)
-    ms = time_ms(lambda: ops.grouped_gemm(x, w, gs), reps=5)
-    plain_ms = time_ms(lambda: ref.grouped_gemm_ref(x, w, gs), reps=2)
-    library_ms = time_ms(lambda: torch.bmm(x, w), reps=5)
-    live = sum(min(s, C) for s in sizes)
-    experts = sum(1 for s in sizes if s > 0)
-    item = x.element_size()
-    moved = (live * din + experts * din * dout) * item + nbytes(got, gs)
-    b_ms, b_by = bound(2.0 * live * din * dout, moved, dtype)
-    rows[name] = dict(shape=f"E={E} C={C} din={din} dout={dout} "
-                            f"sizes={sizes} bf16",
-                      max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                      bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    rows[name] = dict(max_abs_err=max(errs))   # timed in time_grouped
+
+
+GROUPED_TIMED = (  # (label, group sizes): calibrate's own grid, mixtral-8x7b, --seed 0
+    ("small", [111, 6, 7, 23, 2, 7, 10, 50]),              # train sample 39
+    ("today", [2048, 0, 1500, 37, 1024, 2047, 600, 256]),  # the shape earlier slices timed
+    ("large", [871, 692, 1145, 2831, 1710, 7388, 466, 501]),  # train sample 11
+)
+
+
+def time_grouped() -> list:
+    """The grouped GEMM at three shapes of ``calibrate``'s grid (mixtral-8x7b
+    experts, 4096 x 14336, bf16; capacity the bucket of the largest group, as
+    the oracle calls it), each held to its plain version with rows past the
+    group sizes exactly 0.0, timed by events and by ``device_ms`` beside its
+    bound, the plain version and ``torch.bmm`` over every row of the capacity
+    (dense, no mask).  Inputs come from a generator of their own, so two trees
+    timed in two processes see the same tensors."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    E, din, dout, dtype = 8, 4096, 14336, torch.bfloat16
+    out = []
+    for label, sizes in GROUPED_TIMED:
+        C = KernelOracle(H100_SXM)._round(max(sizes))
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        x = randn(gen, E, C, din, dtype=dtype)
+        w = randn(gen, E, din, dout, dtype=dtype, scale=0.05)
+        got = ops.grouped_gemm(x, w, gs)
+        err = compare("grouped_gemm", f"timed C={C}", got,
+                      ref.grouped_gemm_ref(x, w, gs), TOL_BF16)
+        zeros = all(bool((got[e, n:] == 0).all()) for e, n in enumerate(sizes))
+        if not zeros:
+            fail(f"grouped_gemm [timed C={C}]: rows past a group size are not "
+                 "exactly 0.0")
+        ms = time_ms(lambda: ops.grouped_gemm(x, w, gs), reps=5)
+        plain_ms = time_ms(lambda: ref.grouped_gemm_ref(x, w, gs), reps=2)
+        library_ms = time_ms(lambda: torch.bmm(x, w), reps=5)
+        dev = dict(device_ms=device_ms(lambda: ops.grouped_gemm(x, w, gs), reps=5),
+                   library_device_ms=device_ms(lambda: torch.bmm(x, w), reps=5))
+        live = sum(min(n, C) for n in sizes)
+        experts = sum(1 for n in sizes if n > 0)
+        moved = (live * din + experts * din * dout) * x.element_size() + nbytes(got, gs)
+        b_ms, b_by = bound(2.0 * live * din * dout, moved, dtype)
+        out.append(dict(kernel="grouped_gemm", today=label == "today",
+                        shape=f"E={E} C={C} din={din} dout={dout} sizes={sizes} bf16",
+                        max_abs_err=err, zeros_past_groups=zeros, ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=library_ms, **dev))
+        del x, w, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def wkv_inputs(gen, B, T, H, hs, dtype):
@@ -503,35 +536,56 @@ def check_wkv(gen, rows: dict) -> None:
         errs.append(compare(name, f"state0 final state vs {label}", s, want_s,
                             TOL_WKV_F32))
 
-    # timed as the served prefill calls it: one 2048-token request at full
-    # width, bf16 r/k/v, the f32 decays and output and a zero state in and out
-    B, T, H, hs, C = 1, PARITY_LEN, 32, 64, 16
-    r, k, v, w, u = wkv_inputs(gen, B, T, H, hs, torch.bfloat16)
-    s0 = torch.zeros((B, H, hs, hs), dtype=torch.float32, device="cuda")
+    rows[name] = dict(max_abs_err=max(errs))   # timed in time_wkv
 
-    def kernel():
-        return ops.wkv_chunked(r, k, v, w, u, chunk=C, state0=s0,
-                               return_state=True, out_dtype=torch.float32)
 
-    def plain():
-        return wkv_chunked_plain(r, k, v, w, u, chunk=C, state0=s0,
-                                 return_state=True, out_dtype=torch.float32)
-    (y, s), (want_y, want_s) = kernel(), plain()
-    errs.append(compare(name, "timed y", y, want_y, TOL_WKV_BF16))
-    errs.append(compare(name, "timed final state", s, want_s, TOL_WKV_BF16))
-    ms = time_ms(kernel)
-    plain_ms = time_ms(plain, reps=3)
-    # per (b, h) and chunk: r_dec @ S and the state carry (C x hs x hs each),
-    # the strictly lower intra-chunk r_dec k_dec^T and its product with v
-    # (C(C-1)/2 x hs each), the bonus; all f32 FMA
-    per_chunk = 4 * C * hs * hs + 2 * C * (C - 1) * hs + 4 * C * hs
-    b_ms, b_by = bound(B * H * (T // C) * per_chunk,
-                       nbytes(r, k, v, w, u, s0, y, s), torch.float32)
-    rows[name] = dict(shape=f"B={B} T={T} H={H} hs={hs} C={C}, bf16 r/k/v, "
-                            "f32 w/y/state",
-                      max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                      bound_ms=b_ms, bound_by=b_by,
-                      library_ms=None)   # no single PyTorch call computes WKV6
+WKV_TIMED = (256, 512, 1024, 2048)     # the served prefills' lengths
+
+
+def time_wkv() -> list:
+    """``wkv_chunked`` as the served prefill calls it, at every prompt length
+    ``serve`` gives it: one request at rwkv6-1.6b's width (32 heads of 64,
+    chunk 16), bf16 r/k/v, f32 decays, output and a zero state in and out;
+    held to its plain version, timed by events and by ``device_ms`` beside
+    its bound and the plain version.  Inputs come from a generator of their
+    own, so two trees timed in two processes see the same tensors."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    B, H, hs, C = 1, 32, 64, 16
+    out = []
+    for T in WKV_TIMED:
+        r, k, v, w, u = wkv_inputs(gen, B, T, H, hs, torch.bfloat16)
+        s0 = torch.zeros((B, H, hs, hs), dtype=torch.float32, device="cuda")
+
+        def kernel():
+            return ops.wkv_chunked(r, k, v, w, u, chunk=C, state0=s0,
+                                   return_state=True, out_dtype=torch.float32)
+
+        def plain():
+            return wkv_chunked_plain(r, k, v, w, u, chunk=C, state0=s0,
+                                     return_state=True, out_dtype=torch.float32)
+        (y, s), (want_y, want_s) = kernel(), plain()
+        err = max(compare("wkv_chunked", f"timed T={T} y", y, want_y, TOL_WKV_BF16),
+                  compare("wkv_chunked", f"timed T={T} final state", s, want_s,
+                          TOL_WKV_BF16))
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, reps=3)
+        dev_ms = device_ms(kernel)
+        # per (b, h) and chunk: r_dec @ S and the state carry (C x hs x hs each),
+        # the strictly lower intra-chunk r_dec k_dec^T and its product with v
+        # (C(C-1)/2 x hs each), the bonus; all f32
+        per_chunk = 4 * C * hs * hs + 2 * C * (C - 1) * hs + 4 * C * hs
+        b_ms, b_by = bound(B * H * (T // C) * per_chunk,
+                           nbytes(r, k, v, w, u, s0, y, s), torch.float32)
+        out.append(dict(kernel="wkv_chunked", today=T == PARITY_LEN,
+                        shape=f"B={B} T={T} H={H} hs={hs} C={C}, bf16 r/k/v, "
+                              "f32 w/y/state",
+                        max_abs_err=err, ms=ms, device_ms=dev_ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None))   # no single PyTorch call computes WKV6
+        del r, k, v, w, y, s, want_y, want_s
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernels() -> dict:
@@ -541,15 +595,16 @@ def phase_kernels() -> dict:
     for check in (check_flash, check_decode, check_grouped, check_wkv):
         check(gen, rows)
         torch.cuda.empty_cache()
-    shapes = time_attention()
-    for row in shapes:     # the final line keeps one row per kernel, at today's shape
-        name = row["kernel"]
+    shapes = {"attention": time_attention(), "grouped_gemm": time_grouped(),
+              "wkv_chunked": time_wkv()}
+    for row in (r for group in shapes.values() for r in group):
+        name = row["kernel"]   # the final line keeps one row per kernel, at today's shape
         if row["today"]:
-            rows[name].update({key: row[key] for key in (
+            rows[name].update({key: row.get(key) for key in (
                 "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms")},
                 max_abs_err=max(rows[name]["max_abs_err"], row["max_abs_err"]))
-    say("kernels", ok=not FAILURES, attention_shapes=shapes,
+    say("kernels", ok=not FAILURES, timed_shapes=shapes,
         tolerances={"bf16": TOL_BF16, "bf16_attention": TOL_BF16_ATTN,
                     "f32": TOL_F32,
                     "f32_gemm_rel_to_max": TOL_F32_GEMM_REL,
@@ -874,7 +929,8 @@ def main(argv=None) -> int:
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],
                 "shape": row["shape"], "max_abs_err": row["max_abs_err"],
-                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "ms": row["ms"], "device_ms": row["device_ms"],
+                "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
                for name, row in rows.items()]

@@ -116,6 +116,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.frontier_decode_attention.restype = i
     lib.frontier_grouped_gemm.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.frontier_grouped_gemm.restype = i
+    lib.frontier_grouped_gemm_plan.argtypes = [i, i, i, i, i, i, i,
+                                               ctypes.POINTER(ctypes.c_int)]
+    lib.frontier_grouped_gemm_plan.restype = None
     lib.frontier_wkv_chunked.argtypes = [
         p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, strides, p]
     lib.frontier_wkv_chunked.restype = i

@@ -2,7 +2,7 @@
 //
 // Every kernel accumulates in f32.  f32 inputs go through plain FMA so the
 // result is true f32 (no TF32); bf16 products go through the tensor cores
-// (mma.sync m16n8k16, or wgmma in flash attention), f32 accumulate.
+// (mma.sync m16n8k16, or wgmma: wgmma.cuh), f32 accumulate.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,4 +108,28 @@ __device__ __forceinline__ void cp_async_commit() {
 // Wait until at most N of this thread's committed groups are in flight.
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers in shared memory: one phase completes when `count` threads have
+// arrived (and, for TMA, the expected bytes have landed).  A wait on parity P
+// returns once the phase of that parity has completed.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }

@@ -16,16 +16,17 @@ case) and the final state as a second output.
 
 The work is small against the card: at one 2048-token request of rwkv6-1.6b
 a layer moves 60 MB (bf16 r/k/v, f32 decays and output) and does 1.2 GFLOP of
-f32 chunk arithmetic, 0.018 ms at the H100's peaks, with operations the
-larger term.  What bounds this design is the chunk loop, which is sequential.
-One block sits on each ``(column tile of S, head, batch row)`` (column ``j`` of
-the state and of ``y`` depends only on column ``j`` of ``v``), so one request
-still fills 128 of the 132 SMs, and the block loops over the chunks with its
-slice of ``S`` in shared memory: the TPU kernel's sequential grid axis becomes
-that loop.  Math is f32 FMA throughout (no TF32), so f32 inputs meet the
-reference tests' 5e-5.  Measured by ``chip_smoke.py`` at that shape on an
-NVIDIA H100 80GB HBM3 with a 700 W power limit: 1.17 ms.  Source:
-``csrc/wkv_chunk.cu``.
+chunk arithmetic, 0.018 ms at the H100's peaks.  What bounds it is the chain
+of 128 chunks.  One block owns 16 state columns of one ``(head, batch row)``
+(column ``j`` of the state and of ``y`` depends only on column ``j`` of
+``v``), so one request fills 128 of the 132 SMs, and splits into three roles
+joined by mbarrier rings: prep warps compute each chunk's state-free terms
+(decays as running products of ``w``, ``r_dec``, the carried ``k``, the
+intra-chunk matrix and its product with ``v``) a chunk or two ahead, from
+inputs streamed in by ``cp.async``; carry warps hold the state slice in
+registers and do only the carry, the serial chain; y warps form
+``y = y_intra + r_dec @ S`` beside it.  All arithmetic is f32 FMA (no TF32),
+for the reference tests' 5e-5 on f32 inputs.  Source: ``csrc/wkv_chunk.cu``.
 """
 from __future__ import annotations
 
@@ -35,8 +36,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: limits of the kernel's shared-memory layout (one block holds 4 C x hs f32
-#: tiles and an hs x 16 slice of the state)
+#: limits of the kernel's shared-memory layout (a ring slot and the prep space
+#: hold several C x hs f32 tiles) and of its 256 prep threads (4 a chunk row)
 MAX_HEAD_SIZE, MAX_CHUNK = 128, 64
 
 

@@ -150,6 +150,63 @@ def test_grouped_gemm_kernel(cuda, E, C, din, dout, dtype):
             assert bool((got[e, int(sizes[e]):] == 0).all())
 
 
+
+def _library_plan(dtype_code, E, C, din, dout, n_sm, aligned=True):
+    """The launch the C side makes, as frontier_grouped_gemm_plan reports it."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.grouped_gemm import GemmPlan
+    out = (ctypes.c_int * 6)()
+    _build.load().frontier_grouped_gemm_plan(dtype_code, E, C, din, dout, n_sm,
+                                             int(aligned), out)
+    return GemmPlan("wgmma" if out[0] == 1 else "fma", *out[1:])
+
+
+def test_grouped_gemm_plan_matches_the_library(cuda):
+    """The Python mirror of the launch plan is the C launcher's own."""
+    from repro_torch.kernels.grouped_gemm import grouped_plan
+    for code in (0, 1):
+        for E, C, din, dout in ((8, 2416, 4096, 14336), (8, 112, 4096, 14336),
+                                (8, 9136, 14336, 4096), (3, 50, 100, 70),
+                                (1, 16, 128, 256), (384, 64, 7168, 2048),
+                                (9000, 16, 64, 64), (2, 32, 0, 64)):
+            for n_sm in (132, 7):
+                for aligned in (True, False):
+                    assert (_library_plan(code, E, C, din, dout, n_sm, aligned)
+                            == grouped_plan(code, E, C, din, dout, n_sm, aligned))
+
+
+@pytest.mark.parametrize("case,E,C,din,dout,sizes", [
+    ("more tiles than SMs", 8, 512, 256, 2048, None),
+    ("din % 64 != 0", 3, 130, 200, 264, [130, 64, 1]),
+    ("last m-tile partly live", 2, 200, 128, 512, [200, 150]),
+    ("full expert beside an empty one", 4, 256, 64, 256, [256, 0, 256, 0]),
+    ("odd m-tile counts", 3, 384, 64, 512, [384, 129, 1]),
+    ("dout past the last panel", 2, 96, 64, 328, [96, 17]),
+])
+def test_grouped_gemm_kernel_persistent(cuda, case, E, C, din, dout, sizes):
+    """The persistent bf16 kernel: tiles walked by fewer blocks than tiles,
+    TMA's zero fill past din, C and dout, rows past the group size exactly 0,
+    the dead region zeroed, and the same bits from two calls (no atomics)."""
+    from repro_torch.kernels.grouped_gemm import grouped_plan
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = grouped_plan(1, E, C, din, dout, n_sm)
+    assert plan.path == "wgmma"
+    if sizes is None:
+        assert E * -(-C // plan.bm) * -(-dout // plan.bn) > n_sm == plan.blocks
+        sizes = RNG.integers(C // 2, C + 1, E)
+    x = from_numpy(arr(E, C, din), cuda, torch.bfloat16)
+    w = from_numpy(arr(E, din, dout, scale=0.2), cuda, torch.bfloat16)
+    gs = torch.from_numpy(np.asarray(sizes, np.int32)).to(cuda)
+    before = ops.launch_counts()["grouped_gemm"]
+    got = ops.grouped_gemm(x, w, gs)
+    assert ops.launch_counts()["grouped_gemm"] == before + 1
+    close(got, ref.grouped_gemm_ref(x, w, gs), "bf16")
+    for e, n in enumerate(sizes):
+        assert bool((got[e, int(n):] == 0).all())
+    assert torch.equal(got, ops.grouped_gemm(x, w, gs))
+
+
 def wkv_inputs(B, T, H, hs):
     """r, k, v, decays in the reference test's (0.35, 0.95) band, u."""
     r, k, v = arr(B, T, H, hs), arr(B, T, H, hs), arr(B, T, H, hs)
@@ -205,6 +262,58 @@ def test_wkv_chunked_kernel_state_and_strides(cuda, B, T, H, hs, chunk):
                                    **WKV_TOL["f32"])
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("T,chunk", [(512, 8), (768, 16), (512, 32), (1024, 64)])
+def test_wkv_chunked_kernel_long(cuda, T, chunk, dtype):
+    """Many chunks through the prep ring at the served head size, every chunk
+    length the wrapper takes, from a non-zero state to the final one."""
+    B, H, hs = 1, 3, 64
+    r, k, v, w, u = (from_numpy(a, cuda) for a in wkv_inputs(B, T, H, hs))
+    s0 = from_numpy(arr(B, H, hs, hs, scale=0.3), cuda)
+    r, k, v = (x.to(DTYPES[dtype]) for x in (r, k, v))
+    before = ops.launch_counts()["wkv_chunked"]
+    y, s = ops.wkv_chunked(r, k, v, w, u, chunk=chunk, state0=s0,
+                           return_state=True, out_dtype=torch.float32)
+    assert ops.launch_counts()["wkv_chunked"] == before + 1
+    want = {"plain": wkv_chunked_plain(r, k, v, w, u, chunk=chunk, state0=s0,
+                                       return_state=True, out_dtype=torch.float32),
+            "sequential": ref.wkv_ref(r, k, v, w, u, state0=s0, return_state=True)}
+    for got, (want_y, want_s) in ((y, want["plain"]), (y, want["sequential"])):
+        for g, wnt in ((got, want_y), (s, want_s)):
+            np.testing.assert_allclose(g.float().cpu().numpy(),
+                                       wnt.float().cpu().numpy(), **WKV_TOL[dtype])
+
+
+@pytest.mark.parametrize("hs,chunk", [(128, 16), (100, 64), (8, 1)])
+def test_wkv_chunked_kernel_widths(cuda, hs, chunk):
+    """The wrapper's limits (hs 128, chunk 64), a head size that is no
+    multiple of the column tile, and chunks of one step."""
+    B, T, H = 2, 128, 2
+    r, k, v, w, u = (from_numpy(a, cuda) for a in wkv_inputs(B, T, H, hs))
+    y, s = ops.wkv_chunked(r, k, v, w, u, chunk=chunk, return_state=True)
+    want_y, want_s = ref.wkv_ref(r, k, v, w, u, return_state=True)
+    for got, want in ((y, want_y), (s, want_s)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **WKV_TOL["f32"])
+
+
+@pytest.mark.parametrize("dtype,offset", [("f32", 1), ("bf16", 2), ("bf16", 1)])
+def test_wkv_chunked_kernel_unaligned_views(cuda, dtype, offset):
+    """Views that start off a 16-byte boundary (one or two elements in): the
+    kernel reads them by plain loads instead of staging them by cp.async."""
+    B, T, H, hs = 1, 96, 2, 32
+    r, k, v, w, u = (from_numpy(a, cuda) for a in wkv_inputs(B, T, H, hs))
+    wide = torch.cat([torch.zeros_like(r[..., :offset]), r, k, v], dim=-1).to(DTYPES[dtype])
+    rv, kv, vv = (wide[..., offset + i * hs:offset + (i + 1) * hs] for i in range(3))
+    y, s = ops.wkv_chunked(rv, kv, vv, w, u, chunk=16, return_state=True,
+                           out_dtype=torch.float32)
+    want_y, want_s = wkv_chunked_plain(rv, kv, vv, w, u, chunk=16,
+                                       return_state=True, out_dtype=torch.float32)
+    for got, want in ((y, want_y), (s, want_s)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **WKV_TOL["f32"])
+
+
 def test_misaligned_input_raises(cuda):
     q = torch.zeros((1, 16, 4, 129), device=cuda)[..., 1:]   # 4-byte offset
     with pytest.raises(ValueError, match="aligned"):
@@ -228,3 +337,29 @@ def test_empty_shapes_launch_nothing(cuda):
                             torch.zeros((2, 16, 8), device=cuda),
                             gs).shape == (2, 0, 8)
     assert ops.launch_counts() == before
+
+
+def test_wrappers_never_synchronise(cuda):
+    """The oracle times these calls back to back: neither wrapper may read a
+    device tensor (group_sizes) on the host."""
+    E, C, din, dout = 4, 64, 128, 256
+    x = from_numpy(arr(E, C, din), cuda, torch.bfloat16)
+    w = from_numpy(arr(E, din, dout, scale=0.2), cuda, torch.bfloat16)
+    gs = torch.tensor([64, 3, 0, 40], dtype=torch.int32, device=cuda)
+    r, k, v, wd, u = (from_numpy(a, cuda) for a in wkv_inputs(1, 64, 2, 64))
+    rb, kb, vb = (t.to(torch.bfloat16) for t in (r, k, v))
+    s0 = torch.zeros((1, 2, 64, 64), device=cuda)
+    ops.grouped_gemm(x, w, gs)                   # the build, outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = ops.grouped_gemm(x, w, gs)
+        yw, s = ops.wkv_chunked(rb, kb, vb, wd, u, chunk=16, state0=s0,
+                                return_state=True, out_dtype=torch.float32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    close(y, ref.grouped_gemm_ref(x, w, gs), "bf16")
+    want_y, want_s = wkv_chunked_plain(rb, kb, vb, wd, u, chunk=16, state0=s0,
+                                       return_state=True, out_dtype=torch.float32)
+    np.testing.assert_allclose(yw.cpu().numpy(), want_y.cpu().numpy(), **WKV_TOL["bf16"])
+    np.testing.assert_allclose(s.cpu().numpy(), want_s.cpu().numpy(), **WKV_TOL["bf16"])
