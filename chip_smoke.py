@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, no network
 
-Drives the port's two paths through their own entry points: calibrate
+Drives the port's three paths through their own entry points: calibrate
 mixtral-8x7b against the hand-written kernels and price steps from the fit
 (``python -m repro_torch``'s ``calibrate``, at the full width of
-mixtral-8x7b), and serve rwkv6-1.6b at full width through ``MiniEngine``,
-whose prefill runs the chunked WKV6 kernel in every layer.  Phases, one JSON
-line each:
+mixtral-8x7b), simulate colocated, PD and AF deployments of mixtral-8x7b
+priced by that fit (``python -m repro_torch run``), and serve rwkv6-1.6b at
+full width through ``MiniEngine``, whose prefill runs the chunked WKV6
+kernel in every layer.  Phases, one JSON line each (``simulate`` one per
+run and one for the phase):
 
 1. ``env``        the card as ``nvidia-smi`` names it, torch and CUDA versions
 2. ``build``      compiles ``src/repro_torch/kernels/csrc/*.cu``
@@ -27,11 +29,27 @@ line each:
                   three kernels it prices must each be launched
 5. ``predict``    load the artifacts, price prefill and decode steps, and hold
                   the fitted parts to the fitted models' own predictions
-6. ``oracle_clock`` every shape of a second ``calibrate`` run timed by the
+6. ``simulate``   ``python -m repro_torch run`` on three full-width
+                  mixtral-8x7b deployments on ``H100-SXM`` (colocated 2 x tp2;
+                  PD 1 x tp2 prefill, 2 x tp2 decode; AF 1 x tp2 prefill, m=4
+                  attention and ep=4 experts, two-batch overlap), 100 Poisson
+                  requests at 10/s, each with analytical operator models and
+                  with the refined models ``calibrate`` just fitted: every run
+                  completes all 100 requests with finite summaries; the
+                  refined AF run, repeated, is byte-identical; the ``jit``
+                  backend on the card equals ``numpy`` within 1e-5 on 64
+                  mixed steps through the vectorised path (and a whole jit
+                  run's distance from numpy is printed, with no gate); a
+                  two-point jit ``sweep`` in spawned workers repeats the
+                  in-process reports byte for byte; and
+                  which clusters the fit prices (``refined_priced_by_fit``: it
+                  is fitted at tp=1, so tp2 clusters take virtual kernels).
+                  This path launches no kernel: it prices steps from the fit.
+7. ``oracle_clock`` every shape of a second ``calibrate`` run timed by the
                   oracle's CUDA events and by ``device_ms``; held-out MAPE of
                   the fit on each clock over the same shapes (a reading, no
                   gate on the MAPE)
-7. ``serve``      rwkv6-1.6b, random weights from a seed: (a) f32 prefill of
+8. ``serve``      rwkv6-1.6b, random weights from a seed: (a) f32 prefill of
                   one 2048-token prompt through the kernel and through the
                   plain sequential recurrence, logits and every layer's state
                   within 2e-3; (b) bf16 ``MiniEngine`` with 4 slots serving 6
@@ -49,6 +67,7 @@ bound and a library call's time; the last line is the verdict.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -64,7 +83,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # importing the port first: a directory that holds this script alone fails here
-from repro_torch.api import cli  # noqa: E402
+from repro_torch.api import SimSpec, build as build_system, cli, sweep  # noqa: E402
 from repro_torch.calib import calibrate, load_calibrated_ops  # noqa: E402
 from repro_torch.calib.oracle import KernelOracle  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -124,6 +143,21 @@ SOURCES = {
     "grouped_gemm": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
     "wkv_chunked": "src/repro_torch/kernels/csrc/wkv_chunk.cu",
 }
+
+# The simulated deployments: full-width mixtral-8x7b on the H100 preset, 100
+# Poisson requests at 10/s.  Each runs with analytical operator models and
+# with the refined models fitted by ``calibrate`` on the card.
+SIM_MODEL = {"name": "mixtral-8x7b", "smoke": False}
+SIM_WORKLOAD = {"n_requests": 100, "arrival": "poisson", "rate": 10.0,
+                "prompt_mean": 1024, "output_mean": 128, "seed": 1}
+SIM_DEPLOYMENTS = {   # name: (topology, pipeline)
+    "colocated": ({"preset": "colocated", "n_replicas": 2, "tp": 2}, None),
+    "pd": ({"preset": "pd", "n_prefill": 1, "prefill_tp": 2, "n_decode": 2,
+            "decode_tp": 2}, None),
+    "af": ({"preset": "af", "n_prefill": 1, "prefill_tp": 2, "n_decode": 1,
+            "m": 4, "ffn_ep": 4}, {"preset": "two_batch", "ep_overlap": 0.5}),
+}
+JIT_STEPS, JIT_RTOL = 64, 1e-5   # tests/test_predictor_batch.py's float32 gate
 
 FAILURES = []
 
@@ -706,6 +740,183 @@ def phase_predict(out_root: str) -> None:
     stop_if_failed("predict")
 
 
+def sim_spec(name: str, opmodel: dict) -> dict:
+    topology, pipeline = SIM_DEPLOYMENTS[name]
+    spec = {"name": f"{name}-{opmodel['name']}", "model": SIM_MODEL,
+            "topology": dict(topology, hardware="H100-SXM"),
+            "workload": SIM_WORKLOAD, "opmodel": opmodel, "seed": 1}
+    if pipeline is not None:
+        spec["pipeline"] = pipeline
+    return spec
+
+
+def stable_view(rep: dict) -> str:
+    """tests/test_determinism.py::_stable_view of a saved report."""
+    return json.dumps({"summary": rep["summary"], "hash": rep["spec_hash"],
+                       "clusters": rep["clusters"],
+                       "conservation": rep["conservation"],
+                       "events": rep["sim_events"]}, sort_keys=True)
+
+
+def sim_run(spec: dict, out_dir: str, label: str) -> dict:
+    """One ``python -m repro_torch run`` of ``spec`` on the card; checks the
+    report and prints its line.  The CLI's own summary goes to a log beside
+    the report."""
+    path = os.path.join(out_dir, f"{spec['name']}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f, indent=2, sort_keys=True)
+    t0 = time.perf_counter()
+    with open(os.path.join(out_dir, f"{spec['name']}.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        rc = cli.main(["run", path, "-o", out_dir, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    report_path = os.path.join(out_dir, f"{spec['name']}.report.json")
+    if rc != 0 or not os.path.isfile(report_path):
+        fail(f"simulate {label}: run exited with {rc}")
+        return {}
+    with open(report_path) as f:
+        rep = json.load(f)
+    s = rep["summary"]
+    want = spec["workload"]["n_requests"]
+    if s.get("n_completed") != want or rep["conservation"] != {"complete": want}:
+        fail(f"simulate {label}: {s.get('n_completed')} of {want} completed, "
+             f"conservation {rep['conservation']}")
+    bad = sorted(k for k, v in s.items()
+                 if not (isinstance(v, (int, float)) and math.isfinite(v)))
+    if bad:
+        fail(f"simulate {label}: summary values not finite: {bad}")
+    line = {"run": label, "wall_s": wall, "report_wall_s": rep["wall_clock_s"],
+            "events": rep["sim_events"],
+            "events_per_s": rep["sim_events"] / rep["wall_clock_s"],
+            "n_devices": rep["n_devices"], "n_completed": s.get("n_completed"),
+            "duration_s": s.get("duration_s"),
+            "predictor_cache_hit_rate": s.get("predictor_cache_hit_rate")}
+    for key in ("throughput_tok_s", "throughput_tok_s_per_device",
+                "ttft_mean_s", "ttft_p99_s", "tpot_mean_s", "tpot_p99_s"):
+        line[key] = s.get(key)
+    if "af" in rep["clusters"].get("decode", {}):
+        line["af"] = rep["clusters"]["decode"]["af"]
+        line["bubble_time_s"] = s.get("bubble_time_s")
+        line["overlap_efficiency"] = s.get("overlap_efficiency")
+    say("simulate_run", **line)
+    return rep
+
+
+def fit_coverage(name: str, calib_root: str) -> dict:
+    """Which clusters of a refined deployment the card's fit prices.  The
+    artifacts are fitted at the model's tp=1 geometry; a sharded shape falls
+    back to the virtual-kernel model (the reference's rule).  Each cluster's
+    first replica prices one prefill and one decode step of its role, and
+    the fitted models' calls are counted: a reading, no gate."""
+    spec = SimSpec.from_dict(sim_spec(name, {"name": "refined",
+                                             "calibration": calib_root}))
+    fitted = load_calibrated_ops(calib_root, get_config(SIM_MODEL["name"]), H100_SXM)
+    counts = {}
+    for part in ("attention", "grouped"):
+        model = getattr(fitted, part)
+        predict = model.predict
+
+        def counted(*args, _part=part, _predict=predict, **kwargs):
+            counts[_part] = counts.get(_part, 0) + 1
+            return _predict(*args, **kwargs)
+        model.predict = counted
+    handle = build_system(spec, ops=fitted, device="cuda")
+    coverage = {}
+    for cname, cluster in handle.clusters.items():
+        pred = cluster.replicas[0].predictor
+        counts.clear()
+        if cluster.role in ("prefill", "colocated"):
+            pred.step_time([1024], [1024], decode=False)
+        if cluster.role in ("decode", "colocated"):
+            pred.step_time([1] * 8, [1100] * 8, decode=True)
+        coverage[cname] = {"attention_by_fit": counts.get("attention", 0) > 0,
+                           "grouped_gemm_by_fit": counts.get("grouped", 0) > 0}
+    return coverage
+
+
+def jit_steps_on_card() -> dict:
+    """The colocated analytical deployment built for the card: the ``jit``
+    backend's fused float32 roofline, evaluated by torch on the card, against
+    the float64 ``numpy`` path on 64 steps of mixed lengths."""
+    spec = SimSpec.from_dict(sim_spec("colocated", {"name": "analytical"}))
+    pred = build_system(spec, device="cuda").clusters["colocated"].replicas[0].predictor
+    vectorised = pred.device == "cuda" and pred._vectorized_ok()
+    if not vectorised:
+        fail("simulate jit: the colocated analytical predictor is not on the "
+             "card's vectorised path")
+    rng = np.random.default_rng(0)
+    prefill, decode = [], []
+    for _ in range(JIT_STEPS // 2):
+        q = [int(x) for x in rng.integers(1, 4097, int(rng.integers(1, 9)))]
+        prefill.append((q, [x + int(rng.integers(0, 4097)) for x in q]))
+        kv = [int(x) for x in rng.integers(1, 8193, int(rng.integers(1, 65)))]
+        decode.append(([1] * len(kv), kv))
+    worst = 0.0
+    for steps, is_decode in ((prefill, False), (decode, True)):
+        jit = pred.step_time_batch(steps, decode=is_decode, backend="jit")
+        num = pred.step_time_batch(steps, decode=is_decode, backend="numpy")
+        if not (np.all(np.isfinite(jit)) and np.all(num > 0)):
+            fail("simulate jit: non-finite or zero step times")
+            continue
+        worst = max(worst, float(np.max(np.abs(jit - num) / num)))
+    if worst > JIT_RTOL:
+        fail(f"simulate jit: {worst:.3e} relative from numpy, over {JIT_RTOL}")
+    return {"steps": JIT_STEPS, "max_rel_err": worst, "rtol": JIT_RTOL,
+            "vectorised": vectorised, "device": str(pred.device)}
+
+
+def phase_simulate(calib_root: str) -> None:
+    out_dir = os.path.join(ROOT, "build", "sim")
+    os.makedirs(out_dir, exist_ok=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    opmodels = {"analytical": {"name": "analytical"},
+                "refined": {"name": "refined", "calibration": calib_root}}
+    reports = {}
+    for name in SIM_DEPLOYMENTS:
+        for kind, opmodel in opmodels.items():
+            reports[name, kind] = sim_run(sim_spec(name, opmodel), out_dir,
+                                          f"{name}/{kind}")
+    stop_if_failed("simulate")
+    again = sim_run(sim_spec("af", opmodels["refined"]), out_dir, "af/refined again")
+    repeat_identical = bool(again) and \
+        stable_view(again) == stable_view(reports["af", "refined"])
+    if not repeat_identical:
+        fail("simulate: the refined AF run differs when repeated")
+    coverage = {name: fit_coverage(name, calib_root) for name in SIM_DEPLOYMENTS}
+    jit = jit_steps_on_card()
+    # a whole run on the jit backend, beside the numpy run: a reading
+    whole = {}
+    for backend in ("numpy", "jit"):
+        spec = sim_spec("colocated", dict(opmodels["analytical"], backend=backend))
+        spec["name"] += f"-{backend}"
+        whole[backend] = sim_run(spec, out_dir, f"colocated/analytical/{backend}")
+    jit["run_rel_diff"] = {
+        key: (abs(v - whole["numpy"]["summary"][key])
+              / max(abs(whole["numpy"]["summary"][key]), 1e-300))
+        for key, v in whole["jit"].get("summary", {}).items()
+        if key in whole["numpy"].get("summary", {}) and isinstance(v, float)}
+    # sweep workers are spawned on the card (CUDA cannot be used in a child
+    # forked after the parent initialised it); they must repeat in-process
+    spec = SimSpec.from_dict(sim_spec("colocated", dict(opmodels["analytical"],
+                                                        backend="jit")))
+    axes = {"seed": [1, 2]}
+    serial = sweep(spec, axes, jobs=1, device="cuda")
+    spawned = sweep(spec, axes, jobs=2, device="cuda")
+    sweep_identical = [stable_view(a.to_dict()) for a in serial] == \
+        [stable_view(b.to_dict()) for b in spawned]
+    if not sweep_identical:
+        fail("simulate: spawned sweep workers differ from the in-process runs")
+    counts = ops.launch_counts()
+    say("simulate", ok=not FAILURES, wall_s=time.perf_counter() - t0,
+        model=SIM_MODEL, workload=SIM_WORKLOAD, calibration=calib_root,
+        runs=len(reports) + 7, refined_af_repeat_identical=repeat_identical,
+        refined_priced_by_fit=coverage,
+        spawned_sweep_identical=sweep_identical,
+        jit=jit, launches=counts)
+    stop_if_failed("simulate")
+
+
 class TwoClockOracle(KernelOracle):
     """The ``kernels`` oracle with a second clock: every shape it measures is
     timed as the oracle times it (a pair of CUDA events around each call, the
@@ -923,6 +1134,7 @@ def main(argv=None) -> int:
     out_root = os.path.join(ROOT, "build", "calib")
     counts = phase_calibrate(out_root)
     phase_predict(out_root)
+    phase_simulate(out_root)
     phase_oracle_clock()
     counts["wkv_chunked"] = phase_serve()["wkv_chunked"]
 

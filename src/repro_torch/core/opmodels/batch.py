@@ -103,9 +103,13 @@ def grouped_gemm_rank_times(ops, rank_sums, rank_groups, d_in: int,
 
 def analytic_roofline_hw(ops) -> Optional[Tuple[float, float, float]]:
     """``(peak_flops, hbm_bw, op_overhead)`` when ``ops`` prices
-    grouped-GEMMs with the base analytical roofline, else None (an
-    overridden grouped_gemm/_roof must be called per rank)."""
+    grouped-GEMMs with the base analytical roofline — unwrapping
+    pure-delegating :class:`FabricOps` layers — else None (an overridden
+    grouped_gemm/_roof must be called per rank)."""
+    from repro_torch.core.fabric import FabricOps
     o = ops
+    while isinstance(o, FabricOps):
+        o = o.inner
     t = type(o)
     if (t.grouped_gemm is OperatorModelSet.grouped_gemm
             and t._roof is OperatorModelSet._roof):

@@ -179,7 +179,7 @@ def test_cli_calibrate_on_cpu(tmp_path, capsys):
 
 def test_cli_surface():
     with pytest.raises(SystemExit):
-        cli.main(["run", "spec.yaml"])         # not registered yet
+        cli.main(["trace", "spec.yaml"])       # not registered yet
     with pytest.raises(SystemExit):
         cli.main(["calibrate", "--oracle", "pallas"])
     assert cli.main(["calibrate", "--device", "cpu", "--oracle", "kernelsim",
