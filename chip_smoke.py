@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, no network
 
-Drives the port's three paths through their own entry points: calibrate
+Drives the port's paths through their own entry points: calibrate
 mixtral-8x7b against the hand-written kernels and price steps from the fit
 (``python -m repro_torch``'s ``calibrate``, at the full width of
 mixtral-8x7b), simulate colocated, PD and AF deployments of mixtral-8x7b
-priced by that fit (``python -m repro_torch run``), and serve rwkv6-1.6b at
+priced by that fit (``python -m repro_torch run``) and the fleet and
+observability layers (``run``, ``trace``), hold the simulator's prediction
+of qwen2-7b and mixtral-8x7b to ``MiniEngine``'s measured throughput (the
+paper's Table 2, ``repro_torch.launch.serve``), and serve rwkv6-1.6b at
 full width through ``MiniEngine``, whose prefill runs the chunked WKV6
-kernel in every layer.  Phases, one JSON line each (``simulate`` one per
-run and one for the phase):
+kernel in every layer.  Phases, one JSON line each (``simulate``,
+``table2`` one per run or cell and one for the phase):
 
 1. ``env``        the card as ``nvidia-smi`` names it, torch and CUDA versions
 2. ``build``      compiles ``src/repro_torch/kernels/csrc/*.cu``
@@ -44,12 +47,32 @@ run and one for the phase):
                   in-process reports byte for byte; and
                   which clusters the fit prices (``refined_priced_by_fit``: it
                   is fitted at tp=1, so tp2 clusters take virtual kernels).
+                  Then ``run`` of tests/test_golden.py's fleet spec and
+                  ``run`` + ``trace`` of tests/test_obs.py's traced PD spec,
+                  each equal to its CPU golden, and ``trace`` of the
+                  analytical AF deployment: the chrome traces parse with
+                  their timestamps in order, and traced metrics equal
+                  untraced ones.
                   This path launches no kernel: it prices steps from the fit.
-7. ``oracle_clock`` every shape of a second ``calibrate`` run timed by the
-                  oracle's CUDA events and by ``device_ms``; held-out MAPE of
-                  the fit on each clock over the same shapes (a reading, no
-                  gate on the MAPE)
-8. ``serve``      rwkv6-1.6b, random weights from a seed: (a) f32 prefill of
+7. ``refit``      a second fit of the same kernels by the oracle as
+                  ``calibrate`` makes it (C2, the fit's repeatability):
+                  each shape's repeat spread between the two oracles, each
+                  fit scored on the other's held-out truths, and the refined
+                  AF deployment priced from each (``repro_torch.calib.study``
+                  ``two_fits``).  Readings, no gate on a spread.
+8. ``table2``     two ``calibrate`` fits of qwen2-7b (each must launch both
+                  attention kernels); then each cell of ``TABLE2`` (qwen2-7b
+                  at full width, mixtral-8x7b at 16 of its 32 layers; bf16,
+                  random weights) measured on ``MiniEngine`` (a warm pass,
+                  then the measured one; every request must complete with
+                  its tokens) and predicted eight ways: analytical on the
+                  ``H100-SXM`` preset and on ``measure_hardware``, refined
+                  from each of two fits, each with the measured decode floor
+                  as ``engine_overhead`` and with the predictor's default.
+                  Every prediction completes every request with finite
+                  summaries, and a refined one repeats byte for byte.  No
+                  gate on the error: it is a reading.
+9. ``serve``      rwkv6-1.6b, random weights from a seed: (a) f32 prefill of
                   one 2048-token prompt through the kernel and through the
                   plain sequential recurrence, logits and every layer's state
                   within 2e-3; (b) bf16 ``MiniEngine`` with 4 slots serving 6
@@ -68,6 +91,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -84,14 +109,20 @@ import torch  # noqa: E402
 
 # importing the port first: a directory that holds this script alone fails here
 from repro_torch.api import SimSpec, build as build_system, cli, sweep  # noqa: E402
-from repro_torch.calib import calibrate, load_calibrated_ops  # noqa: E402
+from repro_torch.calib import load_calibrated_ops  # noqa: E402
+from repro_torch.calib import fit as calib_fit  # noqa: E402
 from repro_torch.calib.oracle import KernelOracle  # noqa: E402
+from repro_torch.calib.study import (  # noqa: E402
+    SIZES, af_spread, device_ms, fit, two_fits)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.hardware import H100_SXM, ParallelismConfig  # noqa: E402
+from repro_torch.core.opmodels.calibration import measure_hardware  # noqa: E402
+from repro_torch.core.workflows.colocated import build_colocated  # noqa: E402
 from repro_torch.core.predictor import ExecutionPredictor  # noqa: E402
 from repro_torch.core.routing import BalancedRouting  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.wkv_chunk import wkv_chunked_plain  # noqa: E402
+from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.models import AxisRules, build_model, init_tree  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.common import tree_map  # noqa: E402
@@ -99,7 +130,8 @@ from repro_torch.serving.engine import MiniEngine  # noqa: E402
 
 # The main path's own sizes: the oracle's accelerator limits and a sample count
 # that keeps the whole script well inside its time limit.
-TRAIN_SAMPLES, EVAL_SAMPLES, MAX_LEN, MAX_BATCH = 400, 120, 8192, 64
+TRAIN_SAMPLES, EVAL_SAMPLES, MAX_LEN, MAX_BATCH = (
+    SIZES[k] for k in ("n_train", "n_eval", "max_len", "max_batch"))
 CALIBRATE_KERNELS = ("flash_attention", "decode_attention", "grouped_gemm")
 
 # The served path: rwkv6-1.6b at full width, prompts whose lengths are
@@ -159,6 +191,63 @@ SIM_DEPLOYMENTS = {   # name: (topology, pipeline)
 }
 JIT_STEPS, JIT_RTOL = 64, 1e-5   # tests/test_predictor_batch.py's float32 gate
 
+# The goldens the fleet and observability runs are held to, with
+# tests/test_golden.py's comparison: the spec hash exactly, every float to
+# 1e-6 relative.  The specs are those tests' own (tests/test_golden.py's
+# fleet spec; tests/test_obs.py's traced PD spec, whose chrome trace's
+# pid/tid maps and event counts per phase are pinned).
+GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
+GOLDEN_RTOL = 1e-6
+FLEET_PD = {
+    "name": "golden-fleet-pd",
+    "model": {"name": "qwen2-7b", "smoke": True},
+    "topology": {"preset": "colocated"},
+    "workload": {"n_requests": 120, "rate": 40.0,
+                 "rate_curve": "diurnal", "rate_period": 10.0,
+                 "rate_amplitude": 0.7, "prompt_mean": 256,
+                 "output_mean": 32, "prefix_groups": 4,
+                 "prefix_len": 256, "seed": 15},
+    "memory": {"manager": "prefix"},
+    "slo": {"ttft_s": 0.5, "tpot_s": 0.05},
+    "fleet": {
+        "instances": [
+            {"name": "colo", "count": 2},
+            {"name": "pd", "count": 1,
+             "topology": {"preset": "pd", "n_prefill": 1, "n_decode": 1}},
+        ],
+        "router": "prefix_affinity",
+        "autoscaler": {"min_instances": 1, "max_instances": 4,
+                       "interval_s": 0.5, "cooldown_s": 1.0,
+                       "up_queue_depth": 8.0, "down_queue_depth": 1.0},
+        "tenants": [
+            {"name": "paid", "weight": 1, "ttft_s": 0.3},
+            {"name": "free", "weight": 3, "ttft_s": 1.0, "priority": 1},
+        ],
+    },
+    "seed": 15,
+}
+OBS_TINY_PD = {
+    "name": "obs-tiny-pd",
+    "model": {"name": "qwen2-7b", "smoke": True},
+    "topology": {"preset": "pd", "n_prefill": 1, "n_decode": 1},
+    "workload": {"n_requests": 12, "arrival": "burst", "burst_size": 12,
+                 "burst_period": 1.0, "prompt_mean": 4096,
+                 "output_mean": 16, "seed": 7},
+    "seed": 7,
+}
+
+# Table 2 on the card: the real MiniEngine (bf16, the models' own ops, random
+# weights from seed 0) against the simulator's prediction of the same fixed
+# batch on one tp=1 replica.  The reference's grid (prompts x16, outputs x4,
+# max_seq 1024; benchmarks/bench_e2e_accuracy.py) with powers-of-two
+# prompts, so the engine's bucket padding adds nothing.  mixtral-8x7b keeps
+# 16 of its 32 layers so its bf16 weights fit one card; each layer is whole.
+TABLE2 = {  # model: (layers kept, None for all; cells (batch, prompt, output))
+    "qwen2-7b": (None, ((2, 256, 128), (4, 512, 64), (8, 256, 64), (4, 128, 96))),
+    "mixtral-8x7b": (16, ((4, 512, 64), (8, 256, 64))),
+}
+TABLE2_MAX_SEQ = 1024
+
 FAILURES = []
 
 
@@ -196,31 +285,6 @@ def time_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, reps: int = 10) -> float:
-    """Mean milliseconds per call that the card takes for ``reps`` calls
-    queued back to back, after one warm-up: a spin kernel holds the card
-    while the host queues them, so the events around them see the card's
-    time and none of the host's launch path.  The spin is doubled until the
-    card is still in it when the last call has been queued."""
-    fn()
-    torch.cuda.synchronize()
-    cycles = 1 << 22                          # about 2 ms at the H100's clock
-    for _ in range(8):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        caught_up = start.query()             # the card reached the calls first
-        torch.cuda.synchronize()
-        if not caught_up:
-            return start.elapsed_time(end) / reps
-        cycles *= 2
-    raise RuntimeError("device_ms: the host never queued the calls ahead of the card")
 
 
 def compare(name: str, case: str, got, want, tol=None, rel_to_max=None) -> float:
@@ -648,23 +712,41 @@ def phase_kernels() -> dict:
     return rows
 
 
-def phase_calibrate(out_root: str) -> dict:
+def cli_calibrate(model: str, out_root: str) -> tuple:
+    """``python -m repro_torch calibrate --oracle kernels`` on the card at
+    this script's sizes; returns its exit code, wall seconds, launches and
+    the oracle it made (kept from ``calibrate``'s own ``resolve_oracle``
+    call, so its measured shapes can be read afterwards)."""
     entry_path = os.path.join(out_root, "entry.json")
     os.makedirs(out_root, exist_ok=True)
+    made = []
+
+    def keep(*args, **kwargs):
+        made.append(resolve(*args, **kwargs))
+        return made[-1]
+    resolve, calib_fit.resolve_oracle = calib_fit.resolve_oracle, keep
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rc = cli.main(["calibrate", "--model", "mixtral-8x7b", "--hardware",
-                   "H100-SXM", "--oracle", "kernels", "--no-fidelity",
-                   "-o", out_root, "--train-samples", str(TRAIN_SAMPLES),
-                   "--eval-samples", str(EVAL_SAMPLES),
-                   "--max-len", str(MAX_LEN), "--max-batch", str(MAX_BATCH),
-                   "--label", "chip_smoke",
-                   "--entry-out", entry_path])
-    torch.cuda.synchronize()
+    try:
+        rc = cli.main(["calibrate", "--model", model, "--hardware",
+                       "H100-SXM", "--oracle", "kernels", "--no-fidelity",
+                       "-o", out_root, "--train-samples", str(TRAIN_SAMPLES),
+                       "--eval-samples", str(EVAL_SAMPLES),
+                       "--max-len", str(MAX_LEN), "--max-batch", str(MAX_BATCH),
+                       "--label", "chip_smoke",
+                       "--entry-out", entry_path])
+        torch.cuda.synchronize()
+    finally:
+        calib_fit.resolve_oracle = resolve
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
     if rc != 0:
-        fail(f"calibrate exited with {rc}")
+        fail(f"calibrate --model {model} exited with {rc}")
+    return rc, wall, ops.launch_counts(), made[0] if made else None
+
+
+def phase_calibrate(out_root: str) -> tuple:
+    entry_path = os.path.join(out_root, "entry.json")
+    rc, wall, counts, oracle = cli_calibrate("mixtral-8x7b", out_root)
     for name in CALIBRATE_KERNELS:
         if counts[name] <= 0:
             fail(f"calibrate never launched {name}")
@@ -679,7 +761,7 @@ def phase_calibrate(out_root: str) -> dict:
         max_batch=MAX_BATCH,
         fidelity=fidelity)
     stop_if_failed("calibrate")
-    return counts
+    return counts, oracle
 
 
 def phase_predict(out_root: str) -> None:
@@ -762,20 +844,13 @@ def sim_run(spec: dict, out_dir: str, label: str) -> dict:
     """One ``python -m repro_torch run`` of ``spec`` on the card; checks the
     report and prints its line.  The CLI's own summary goes to a log beside
     the report."""
-    path = os.path.join(out_dir, f"{spec['name']}.json")
-    with open(path, "w") as f:
-        json.dump(spec, f, indent=2, sort_keys=True)
     t0 = time.perf_counter()
-    with open(os.path.join(out_dir, f"{spec['name']}.log"), "w") as log, \
-            contextlib.redirect_stdout(log):
-        rc = cli.main(["run", path, "-o", out_dir, "--device", "cuda"])
+    rc, rep = cli_report(["run", spec_file(spec, out_dir), "-o", out_dir],
+                         out_dir, spec["name"])
     wall = time.perf_counter() - t0
-    report_path = os.path.join(out_dir, f"{spec['name']}.report.json")
-    if rc != 0 or not os.path.isfile(report_path):
+    if rc != 0 or not rep:
         fail(f"simulate {label}: run exited with {rc}")
         return {}
-    with open(report_path) as f:
-        rep = json.load(f)
     s = rep["summary"]
     want = spec["workload"]["n_requests"]
     if s.get("n_completed") != want or rep["conservation"] != {"complete": want}:
@@ -802,36 +877,46 @@ def sim_run(spec: dict, out_dir: str, label: str) -> dict:
     return rep
 
 
-def fit_coverage(name: str, calib_root: str) -> dict:
-    """Which clusters of a refined deployment the card's fit prices.  The
+def priced_by_fit(handle, fitted) -> dict:
+    """Which clusters of a built deployment the card's fit prices.  The
     artifacts are fitted at the model's tp=1 geometry; a sharded shape falls
     back to the virtual-kernel model (the reference's rule).  Each cluster's
-    first replica prices one prefill and one decode step of its role, and
-    the fitted models' calls are counted: a reading, no gate."""
-    spec = SimSpec.from_dict(sim_spec(name, {"name": "refined",
-                                             "calibration": calib_root}))
-    fitted = load_calibrated_ops(calib_root, get_config(SIM_MODEL["name"]), H100_SXM)
+    first replica prices one prefill and one decode step of its role while
+    the fitted models' calls are counted (``grouped`` is absent for a dense
+    model)."""
+    parts = {"attention": "attention_by_fit", "grouped": "grouped_gemm_by_fit"}
+    parts = {p: key for p, key in parts.items() if getattr(fitted, p) is not None}
     counts = {}
-    for part in ("attention", "grouped"):
+    for part in parts:
         model = getattr(fitted, part)
-        predict = model.predict
 
-        def counted(*args, _part=part, _predict=predict, **kwargs):
+        def counted(*args, _part=part, _predict=model.predict, **kwargs):
             counts[_part] = counts.get(_part, 0) + 1
             return _predict(*args, **kwargs)
         model.predict = counted
-    handle = build_system(spec, ops=fitted, device="cuda")
     coverage = {}
-    for cname, cluster in handle.clusters.items():
-        pred = cluster.replicas[0].predictor
-        counts.clear()
-        if cluster.role in ("prefill", "colocated"):
-            pred.step_time([1024], [1024], decode=False)
-        if cluster.role in ("decode", "colocated"):
-            pred.step_time([1] * 8, [1100] * 8, decode=True)
-        coverage[cname] = {"attention_by_fit": counts.get("attention", 0) > 0,
-                           "grouped_gemm_by_fit": counts.get("grouped", 0) > 0}
+    try:
+        for cname, cluster in handle.clusters.items():
+            pred = cluster.replicas[0].predictor
+            counts.clear()
+            if cluster.role in ("prefill", "colocated"):
+                pred.step_time([1024], [1024], decode=False)
+            if cluster.role in ("decode", "colocated"):
+                pred.step_time([1] * 8, [1100] * 8, decode=True)
+            coverage[cname] = {key: counts.get(p, 0) > 0 for p, key in parts.items()}
+    finally:
+        for part in parts:                      # back to the class's own method
+            del getattr(fitted, part).predict
     return coverage
+
+
+def fit_coverage(name: str, calib_root: str) -> dict:
+    """``priced_by_fit`` for a refined deployment of phase ``simulate``: a
+    reading, no gate."""
+    spec = SimSpec.from_dict(sim_spec(name, {"name": "refined",
+                                             "calibration": calib_root}))
+    fitted = load_calibrated_ops(calib_root, get_config(SIM_MODEL["name"]), H100_SXM)
+    return priced_by_fit(build_system(spec, ops=fitted, device="cuda"), fitted)
 
 
 def jit_steps_on_card() -> dict:
@@ -907,62 +992,264 @@ def phase_simulate(calib_root: str) -> None:
         [stable_view(b.to_dict()) for b in spawned]
     if not sweep_identical:
         fail("simulate: spawned sweep workers differ from the in-process runs")
+    goldens = golden_runs(out_dir, reports["af", "analytical"])
     counts = ops.launch_counts()
     say("simulate", ok=not FAILURES, wall_s=time.perf_counter() - t0,
         model=SIM_MODEL, workload=SIM_WORKLOAD, calibration=calib_root,
-        runs=len(reports) + 7, refined_af_repeat_identical=repeat_identical,
+        runs=len(reports) + 11, refined_af_repeat_identical=repeat_identical,
         refined_priced_by_fit=coverage,
         spawned_sweep_identical=sweep_identical,
-        jit=jit, launches=counts)
+        jit=jit, fleet_and_obs=goldens, launches=counts)
     stop_if_failed("simulate")
+    return reports["af", "refined"]
 
 
-class TwoClockOracle(KernelOracle):
-    """The ``kernels`` oracle with a second clock: every shape it measures is
-    timed as the oracle times it (a pair of CUDA events around each call, the
-    host's launch path included) and by ``device_ms`` (the card's time alone).
-    It answers with the events; ``pairs`` keeps both, in the order the shapes
-    were measured, which is the order of ``_cache``."""
+def golden_drift(name: str, rep: dict) -> list:
+    """tests/test_golden.py's comparison of a report with its golden: the
+    keys that drifted (the spec hash exactly, floats beyond 1e-6)."""
+    with open(os.path.join(GOLDEN_DIR, f"{name}.json")) as f:
+        golden = json.load(f)
+    drift = [] if rep["spec_hash"] == golden["spec_hash"] else ["spec_hash"]
+    want, got = golden["summary"], rep["summary"]
+    for key in sorted(set(want) | set(got)):
+        e, a = want.get(key, "<missing>"), got.get(key, "<missing>")
+        if isinstance(e, float) and isinstance(a, float):
+            if abs(e - a) > GOLDEN_RTOL * max(abs(e), abs(a), 1e-12):
+                drift.append(key)
+        elif e != a:
+            drift.append(key)
+    return drift
 
-    def __init__(self, hw, **kwargs):
-        super().__init__(hw, **kwargs)
-        self.pairs = []
 
-    def _time(self, fn, *args) -> float:
-        events_s = super()._time(fn, *args)
-        self.pairs.append((events_s, device_ms(lambda: fn(*args), reps=self.reps) * 1e-3))
-        return events_s
+def spec_file(spec: dict, out_dir: str) -> str:
+    path = os.path.join(out_dir, f"{spec['name']}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f, indent=2, sort_keys=True)
+    return path
 
 
-def phase_oracle_clock() -> None:
-    """``calibrate``'s fit on the oracle's clock and on the card's, over one
-    set of shapes: each is timed both ways, the models are fitted and scored
-    on the event times, then refitted and rescored on the device times."""
-    orc = TwoClockOracle(H100_SXM)
-    kw = dict(model="mixtral-8x7b", hardware="H100-SXM", oracle=orc,
-              n_train=TRAIN_SAMPLES, n_eval=EVAL_SAMPLES, max_len=MAX_LEN,
-              max_batch=MAX_BATCH, out_root=None)
-    by_events = calibrate(**kw)
-    measured = list(zip(orc._cache, orc.pairs))
-    shapes = {}
-    for kind in ("prefill", "decode", "grouped"):
-        ev = np.array([e for key, (e, _) in measured if key[0] == kind])
-        dv = np.array([d for key, (_, d) in measured if key[0] == kind])
-        if not (ev.size and (dv > 0).all()):
-            fail(f"oracle_clock: no {kind} shape, or a device time of 0")
-            continue
-        ratio = ev / dv
-        shapes[kind] = dict(n=int(ev.size),
-                            device_ms_p50=float(np.median(dv)) * 1e3,
-                            events_minus_device_ms_p50=float(np.median(ev - dv)) * 1e3,
-                            events_over_device_p50=float(np.median(ratio)),
-                            events_over_device_p90=float(np.percentile(ratio, 90)))
-    stop_if_failed("oracle_clock")
-    orc._cache = {key: dev for key, (_, dev) in measured}
-    by_device = calibrate(**kw)            # every shape is cached: no launch
-    say("oracle_clock", ok=not FAILURES, shapes=shapes,
-        fidelity={"events": by_events.fidelity, "device": by_device.fidelity})
-    stop_if_failed("oracle_clock")
+def cli_report(argv: list, out_dir: str, base: str) -> tuple:
+    """``python -m repro_torch`` with ``argv`` on the card, its own output
+    to a log; returns its exit code and the report it wrote."""
+    with open(os.path.join(out_dir, f"{base}.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        rc = cli.main(argv + ["--device", "cuda"])
+    path = os.path.join(out_dir, f"{base}.report.json")
+    if not os.path.isfile(path):
+        return rc, {}
+    with open(path) as f:
+        return rc, json.load(f)
+
+
+def traced(out_dir: str, spec_path: str, base: str, untraced: dict) -> tuple:
+    """``python -m repro_torch trace`` of a spec: the chrome trace must
+    parse with its timestamps in order, and every metric of the run must
+    equal the untraced run's (the obs keys aside).  Returns the trace's
+    events and a line of figures."""
+    rc, rep = cli_report(["trace", spec_path, "-o", out_dir, "--base", base],
+                         out_dir, base)
+    with open(os.path.join(out_dir, f"{base}.trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    ts = [e["ts"] for e in events if e["ph"] != "M"]
+    monotone = bool(ts) and ts == sorted(ts) and ts[0] >= 0
+    plain = {k: v for k, v in rep.get("summary", {}).items()
+             if not k.startswith(("attribution_", "obs_"))}
+    unchanged = plain == untraced.get("summary")
+    if rc != 0 or not monotone or not unchanged:
+        fail(f"simulate trace {base}: exit {rc}, timestamps in order "
+             f"{monotone}, metrics equal the untraced run's {unchanged}")
+    return events, {"exit": rc, "events": len(events), "timestamps_monotone": monotone,
+                    "metrics_equal_untraced": unchanged,
+                    "obs_spans": rep.get("summary", {}).get("obs_spans")}
+
+
+def trace_structure(events: list) -> dict:
+    """tests/test_obs.py's pinned view of a chrome trace: process and thread
+    names, and the number of events of each phase."""
+    by_phase = {}
+    for e in events:
+        by_phase[e["ph"]] = by_phase.get(e["ph"], 0) + 1
+    return {"pid_map": {e["args"]["name"]: e["pid"] for e in events
+                        if e["ph"] == "M" and e["name"] == "process_name"},
+            "tid_map": {f'{e["pid"]}:{e["tid"]}': e["args"]["name"] for e in events
+                        if e["ph"] == "M" and e["name"] == "thread_name"},
+            "n_by_phase": by_phase}
+
+
+def golden_runs(out_dir: str, af_analytical: dict) -> dict:
+    """The fleet and observability layers on the card, through the CLI:
+    ``run`` of the fleet golden's spec, ``run`` and ``trace`` of the traced
+    PD golden's spec, and ``trace`` of the analytical AF deployment.  Each
+    report equals its CPU golden; traced metrics equal untraced ones."""
+    out = {}
+    paths = {spec["name"]: spec_file(spec, out_dir) for spec in (FLEET_PD, OBS_TINY_PD)}
+    rc, rep = cli_report(["run", paths["golden-fleet-pd"], "-o", out_dir],
+                         out_dir, "golden-fleet-pd")
+    drift = golden_drift("fleet_pd", rep) if rep else ["no report"]
+    if rc != 0 or drift:
+        fail(f"simulate fleet_pd: exit {rc}, drifted from the golden: {drift}")
+    s = rep.get("summary", {})
+    out["fleet_pd"] = {"exit": rc, "golden_equal": not drift,
+                       "instances": len(rep.get("instances", {})),
+                       "scale_events": len(rep.get("scale_events", [])),
+                       "n_completed": s.get("n_completed"),
+                       "throughput_tok_s": s.get("throughput_tok_s")}
+    rc, untraced = cli_report(["run", paths["obs-tiny-pd"], "-o", out_dir],
+                              out_dir, "obs-tiny-pd")
+    events, line = traced(out_dir, paths["obs-tiny-pd"], "obs-tiny-pd-traced",
+                          untraced)
+    with open(os.path.join(GOLDEN_DIR, "obs_trace_pd.json")) as f:
+        structure_equal = trace_structure(events) == json.load(f)
+    if rc != 0 or not structure_equal:
+        fail(f"simulate obs_trace_pd: exit {rc}, trace structure equals the "
+             f"golden {structure_equal}")
+    out["obs_trace_pd"] = dict(line, golden_equal=structure_equal)
+    af_path = os.path.join(out_dir, f"{af_analytical['name']}.json")
+    _, out["af_trace"] = traced(out_dir, af_path, "af-analytical-traced",
+                                af_analytical)
+    return out
+
+
+def refined_af(calib_root: str, label: str) -> float:
+    """Phase ``simulate``'s refined AF deployment priced from ``calib_root``."""
+    out_dir = os.path.join(ROOT, "build", "sim")
+    os.makedirs(out_dir, exist_ok=True)
+    spec = sim_spec("af", {"name": "refined", "calibration": calib_root})
+    spec["name"] += "-" + label.replace(" ", "-").replace(",", "")
+    rep = sim_run(spec, out_dir, f"af/refined {label}")
+    return rep.get("summary", {}).get("throughput_tok_s", float("nan"))
+
+
+def phase_refit(oracle, calib_root: str, calib2_root: str,
+                af_fit1: dict) -> None:
+    """C2: a second fit of mixtral-8x7b's kernels by the oracle as
+    ``calibrate`` makes it, held against phase ``calibrate``'s fit (the
+    repeat spread of each shape, the cross-scores, and the refined AF
+    deployment priced from each)."""
+    t0 = time.perf_counter()
+    second = KernelOracle(H100_SXM)
+    fit(second, calib2_root)
+    c2 = two_fits([oracle, second], [calib_root, calib2_root])
+    c2["refined_af_tok_s"] = [af_fit1["summary"]["throughput_tok_s"],
+                              refined_af(calib2_root, "fit 2")]
+    c2["refined_af_spread"] = af_spread(c2["refined_af_tok_s"])
+    say("refit", ok=not FAILURES, wall_s=time.perf_counter() - t0, **c2)
+    stop_if_failed("refit")
+
+
+def table2_calibrate() -> tuple:
+    """Two fits of qwen2-7b's attention by the CLI's ``calibrate`` (C2: two
+    fits priced side by side); each must launch both attention kernels."""
+    roots, lines = [], []
+    for k in (1, 2):
+        roots.append(os.path.join(ROOT, "build", f"calib_qwen2_{k}"))
+        rc, wall, counts, _ = cli_calibrate("qwen2-7b", roots[-1])
+        for name in ("flash_attention", "decode_attention"):
+            if counts[name] <= 0:
+                fail(f"table2: calibrate --model qwen2-7b never launched {name}")
+        with open(os.path.join(roots[-1], "entry.json")) as f:
+            fidelity = json.load(f)["operators"]
+        lines.append({"wall_s": wall, "launches": counts, "fidelity": fidelity})
+    return roots, lines
+
+
+def decode_parts(cfg, hw, ops, batch: int, context: int) -> dict:
+    """Milliseconds by part of one decode step of ``batch`` rows of
+    ``context`` keys, as ``launch.serve.predict``'s replica prices it (the
+    predictor's default ``engine_overhead``)."""
+    handle = build_colocated(cfg, hw, n_replicas=1, par=ParallelismConfig(tp=1),
+                             ops=ops)
+    pred = handle.clusters["colocated"].replicas[0].predictor
+    return {k: v * 1e3 for k, v in pred.decode_time([context] * batch).parts.items()}
+
+
+def summary_of(rep: dict) -> dict:
+    return {key: rep.get(key) for key in (
+        "throughput_tok_s", "ttft_mean_s", "ttft_p50_s", "tpot_mean_s",
+        "tpot_p50_s", "n_completed")}
+
+
+def phase_table2(mixtral_roots: list) -> None:
+    """Table 2 on the card (``TABLE2``): each cell measured on ``MiniEngine``
+    (``launch.serve.measure``: a warm pass, then the measured one) and
+    predicted four ways (analytical on the ``H100-SXM`` preset and on
+    ``measure_hardware("cuda")``, refined from each of two fits), each with
+    the measured decode floor as ``engine_overhead`` and with the
+    predictor's default (``launch.serve.predict``)."""
+    t0 = time.perf_counter()
+    card_hw = measure_hardware("cuda")
+    qwen_roots, fits_made = table2_calibrate()
+    stop_if_failed("table2")
+    roots = {"qwen2-7b": qwen_roots, "mixtral-8x7b": mixtral_roots}
+    coverage, cells = {}, []
+    for arch, (layers, grid) in TABLE2.items():
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+        fitted = [load_calibrated_ops(root, full, H100_SXM) for root in roots[arch]]
+        profiles = {"analytical, H100-SXM preset": (H100_SXM, None),
+                    "analytical, measured card": (card_hw, None),
+                    "refined, fit 1": (H100_SXM, fitted[0]),
+                    "refined, fit 2": (H100_SXM, fitted[1])}
+        coverage[arch] = {
+            name: priced_by_fit(build_colocated(cfg, hw, n_replicas=1,
+                                                par=ParallelismConfig(tp=1),
+                                                ops=o), o)["colocated"]
+            for name, (hw, o) in profiles.items() if o is not None}
+        for k, (batch, prompt, output) in enumerate(grid):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            measured, floor, reqs = serve_launch.measure(
+                cfg, batch=batch, prompt_len=prompt, output_len=output,
+                max_seq=TABLE2_MAX_SEQ, seed=0, device="cuda",
+                dtype=torch.bfloat16)
+            measure_s = time.perf_counter() - t1
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            cell = f"{arch} b{batch} p{prompt} o{output}"
+            if [len(r.tokens) for r in reqs] != [output] * batch:
+                fail(f"table2 {cell}: tokens {[len(r.tokens) for r in reqs]}")
+            preds = {}
+            t1 = time.perf_counter()
+            for name, (hw, o) in profiles.items():
+                for overhead, floor_s in (("floor", floor), ("default", None)):
+                    rep = serve_launch.predict(cfg, hw, floor_s, o, batch=batch,
+                                               prompt_len=prompt, output_len=output)
+                    line = summary_of(rep)
+                    finite = all(isinstance(v, (int, float)) and math.isfinite(v)
+                                 for v in line.values())
+                    if line["n_completed"] != batch or not finite:
+                        fail(f"table2 {cell} {name}/{overhead}: {line}")
+                        continue
+                    line["rel_err_tok_s"] = (line["throughput_tok_s"]
+                                             / measured["throughput_tok_s"] - 1.0)
+                    preds[f"{name} / {overhead}"] = line
+            if k == 0:                # a refined prediction repeats byte for byte
+                again = [json.dumps(serve_launch.predict(
+                    cfg, H100_SXM, floor, fitted[0], batch=batch,
+                    prompt_len=prompt, output_len=output), sort_keys=True)
+                    for _ in range(2)]
+                if again[0] != again[1]:
+                    fail(f"table2 {cell}: a refined prediction differs when repeated")
+            cells.append(cell)
+            parts = {name: decode_parts(cfg, hw, o, batch, prompt + output // 2)
+                     for name, (hw, o) in profiles.items()}
+            say("table2_cell", model=arch, layers=len(cfg.pattern), batch=batch,
+                prompt=prompt, output=output, max_seq=TABLE2_MAX_SEQ,
+                measured={key: measured[key] for key in (
+                    "throughput_tok_s", "ttft_mean_s", "tpot_mean_s",
+                    "duration_s", "decode_steps", "output_tokens")},
+                decode_floor_s=floor, peak_mem_gb=peak_gb,
+                measure_s=measure_s, predict_s=time.perf_counter() - t1,
+                predicted=preds, mid_decode_step_ms=parts)
+        stop_if_failed("table2")
+    say("table2", ok=not FAILURES, wall_s=time.perf_counter() - t0, cells=cells,
+        hardware={"H100-SXM preset": dataclasses.asdict(H100_SXM),
+                  "measured card": dataclasses.asdict(card_hw)},
+        fits={"qwen2-7b": dict(zip(qwen_roots, fits_made)),
+              "mixtral-8x7b": mixtral_roots},
+        fit_prices_tp1_cluster=coverage)
+    stop_if_failed("table2")
 
 
 def _argmax(logits_row: torch.Tensor) -> int:
@@ -1059,6 +1346,7 @@ def serve_parity(cfg) -> dict:
 
 def phase_serve() -> dict:
     cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()        # this phase's own peak
     with torch.no_grad():
         parity = serve_parity(cfg)
     torch.cuda.empty_cache()
@@ -1131,11 +1419,12 @@ def main(argv=None) -> int:
     card = phase_env()
     phase_build(args.ptxas)
     rows = phase_kernels()
-    out_root = os.path.join(ROOT, "build", "calib")
-    counts = phase_calibrate(out_root)
+    out_root, out2_root = (os.path.join(ROOT, "build", d) for d in ("calib", "calib2"))
+    counts, oracle = phase_calibrate(out_root)
     phase_predict(out_root)
-    phase_simulate(out_root)
-    phase_oracle_clock()
+    af_fit1 = phase_simulate(out_root)
+    phase_refit(oracle, out_root, out2_root, af_fit1)
+    phase_table2([out_root, out2_root])
     counts["wkv_chunked"] = phase_serve()["wkv_chunked"]
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],

@@ -5,14 +5,14 @@
         --axis topology.tp=1,2,4 --axis workload.rate=5,10 --jobs 8
     python -m repro_torch calibrate --model mixtral-8x7b \
         --hardware H100-SXM --oracle kernels
+    python -m repro_torch trace spec.json -o artifacts
     python -m repro_torch list
 
 Reports land under ``artifacts/`` (JSON per run, JSONL per sweep),
 self-describing: each carries its full spec, spec hash, and provenance.
 Every subcommand runs on the card unless ``--device cpu`` is passed;
 nothing steps down to the CPU on its own (``run`` and ``sweep`` read the
-device only for ``opmodel.backend: jit``).  ``trace`` waits for the
-observability layer (ROADMAP Queue A item 7).
+device only for ``opmodel.backend: jit``; ``trace`` as ``run``).
 """
 from __future__ import annotations
 
@@ -111,6 +111,47 @@ def _cmd_run(args: argparse.Namespace) -> int:
     return 0 if rep.all_complete or args.until_ok else 1
 
 
+def _cmd_trace(args: argparse.Namespace) -> int:
+    from repro_torch.obs import (
+        run_traced, write_chrome_trace, write_spans_jsonl, write_summary,
+        render_summary,
+    )
+    spec = _load_spec(args.spec, args.set)
+    # force observability on (keeping any obs options the spec sets)
+    from dataclasses import asdict
+    obs = asdict(spec.obs) if spec.obs is not None else {}
+    obs["enabled"] = True
+    if args.ep_spans:
+        obs["ep_spans"] = True
+    spec = spec.with_(obs=obs)
+    rep, tel = run_traced(spec, device=args.device)
+    if args.base:
+        # a bare name lands inside --out; a path is taken literally
+        base = (args.base if os.path.isabs(args.base)
+                or os.sep in args.base
+                else os.path.join(args.out, args.base))
+        os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
+    else:
+        base = _out_base(spec, args.out)
+    top_n = args.top or (spec.obs.top_n if spec.obs else 5)
+    outs = {
+        "chrome": base + ".trace.json",
+        "jsonl": base + ".spans.jsonl",
+        "summary": base + ".summary.txt",
+    }
+    write_chrome_trace(tel, outs["chrome"])
+    write_spans_jsonl(tel, outs["jsonl"])
+    write_summary(tel, outs["summary"], top_n)
+    rep.save(base + ".report.json")
+    print(render_summary(tel, top_n))
+    for kind, path in outs.items():
+        print(f"{kind:8s} -> {path}")
+    print(f"report   -> {base}.report.json")
+    print("open the chrome trace at https://ui.perfetto.dev "
+          "(or chrome://tracing)")
+    return 0 if rep.all_complete or args.until_ok else 1
+
+
 def _cmd_sweep(args: argparse.Namespace) -> int:
     spec = _load_spec(args.spec, args.set)
     axes: Dict[str, List[Any]] = {}
@@ -194,6 +235,7 @@ def _cmd_list(args: argparse.Namespace) -> int:
     from repro_torch.core.policies.memory import MEMORY
     from repro_torch.core.policies.scheduling import SCHEDULERS
     from repro_torch.core.routing import ROUTERS
+    from repro_torch.fleet.router import FLEET_ROUTERS
     from repro_torch.api.spec import ARRIVALS, PRESETS
     from repro_torch.core.fabric import COLLECTIVES, FABRIC_MODES
     from repro_torch.workload.generator import RATE_CURVES
@@ -217,7 +259,7 @@ def _cmd_list(args: argparse.Namespace) -> int:
         "arrival processes": list(ARRIVALS),
         "rate curves": list(RATE_CURVES),
         "routers": sorted(ROUTERS),
-        "fleet routers": ["(not yet ported: ROADMAP Queue A item 7)"],
+        "fleet routers": sorted(FLEET_ROUTERS),
         "batching policies": sorted(BATCHING),
         "queue policies": sorted(SCHEDULERS),
         "memory managers": sorted(MEMORY),
@@ -255,6 +297,33 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="where opmodel.backend jit evaluates: cuda "
                         "(default) or cpu")
     p.set_defaults(fn=_cmd_run)
+
+    p = sub.add_parser(
+        "trace",
+        help="run one spec with observability on; export a Perfetto-"
+             "loadable chrome trace, a JSONL span log, and a text summary")
+    p.add_argument("spec", help="path to a SimSpec .yaml/.json file")
+    p.add_argument("-o", "--out", default="artifacts",
+                   help="output directory (default: artifacts/)")
+    p.add_argument("--base", default=None,
+                   help="explicit output basename (writes BASE.trace.json, "
+                        "BASE.spans.jsonl, BASE.summary.txt, "
+                        "BASE.report.json); a bare name lands inside "
+                        "--out, a path is taken literally")
+    p.add_argument("--top", type=int, default=None,
+                   help="top-N slowest requests in the summary "
+                        "(default: spec obs.top_n, else 5)")
+    p.add_argument("--ep-spans", action="store_true",
+                   help="also record per-EP-rank dispatch/compute/combine "
+                        "spans (AF MoE clusters; traces the inner event "
+                        "graph on cache-miss steps)")
+    p.add_argument("--set", action="append", metavar="PATH=VALUE")
+    p.add_argument("--until-ok", action="store_true",
+                   help="exit 0 even if the run left incomplete requests")
+    p.add_argument("--device", default="cuda",
+                   help="where opmodel.backend jit evaluates: cuda "
+                        "(default) or cpu")
+    p.set_defaults(fn=_cmd_trace)
 
     p = sub.add_parser("sweep",
                        help="expand axes over a base spec, stream JSONL")

@@ -27,10 +27,9 @@ from repro_torch.core.workflows.pd_disagg import build_pd
 
 
 class ReportBase:
-    """Shared serialization surface of Report and (once the fleet layer is
-    ported) FleetReport: summary item access, dict/JSON round-trip, and
-    file save — one implementation so the two report types cannot drift
-    apart."""
+    """Shared serialization surface of Report and FleetReport: summary
+    item access, dict/JSON round-trip, and file save — one implementation
+    so the two report types cannot drift apart."""
 
     def __getitem__(self, key: str) -> float:
         return self.summary[key]
@@ -89,7 +88,12 @@ def build(spec: SimSpec, *,
     its fused roofline (the card unless ``"cpu"`` is asked for; without
     a card it raises).  The python and numpy backends never read it.
     """
-    spec.validate()      # a fleet spec raises here: item 7 is not ported
+    if spec.fleet is not None:
+        raise SpecError(
+            "spec.fleet: build() compiles ONE deployment — fleet specs go "
+            "through run() (repro_torch.fleet.run_fleet), which builds each "
+            "instance from a fleet-stripped sub-spec")
+    spec.validate()
     cfg = get_config(spec.model.name, smoke=spec.model.smoke)
     topo = spec.topology
     hw = hardware if hardware is not None \
@@ -279,6 +283,7 @@ def run(spec: SimSpec, *,
         hardware: Optional[HardwareSpec] = None,
         ops=None,
         engine_overhead: Optional[float] = None,
+        telemetry=None,
         device="cuda") -> Report:
     """Validate, build, and run one experiment; return its Report.
 
@@ -286,13 +291,29 @@ def run(spec: SimSpec, *,
     simultaneous events by schedule sequence and every RNG is seeded from
     ``spec.seed``.
 
-    A spec with a ``fleet`` section, or with ``obs`` enabled, raises
-    :class:`SpecError`: the fleet control plane and the observability
-    layer are ROADMAP Queue A item 7, not yet ported, and a run never
-    drops the section.  ``device`` is handed to :func:`build`.
+    A spec with a ``fleet`` section dispatches to the fleet control plane
+    and returns a :class:`repro_torch.fleet.FleetReport` (same surface:
+    ``summary`` / ``spec_hash`` / ``save`` / item access).
+
+    ``telemetry`` injects an externally owned :class:`repro_torch.obs.Telemetry`
+    recorder (how ``run_traced`` keeps the spans after the run); with the
+    default ``None``, a recorder is created internally iff ``spec.obs``
+    is enabled.  Obs-off runs never touch the recorder paths.  ``device``
+    is handed to :func:`build` (through the fleet layer for a fleet spec).
     """
+    if spec.fleet is not None:
+        from repro_torch.fleet import run_fleet
+        return run_fleet(spec, hardware=hardware, ops=ops,
+                         engine_overhead=engine_overhead,
+                         telemetry=telemetry, device=device)
+    if telemetry is None and spec.obs is not None and spec.obs.enabled:
+        from repro_torch.obs import Telemetry
+        telemetry = Telemetry.from_spec(spec.obs)
     t0 = time.perf_counter()
     handle = build(spec, hardware=hardware, ops=ops, device=device)
+    if telemetry is not None:
+        from repro_torch.obs import attach_telemetry
+        attach_telemetry(handle, telemetry)
     if engine_overhead is not None:
         for cluster in handle.clusters.values():
             for w in cluster.replicas:
@@ -362,6 +383,8 @@ def run(spec: SimSpec, *,
         summary["fabric_exposed_comm_s"] = exposed
         summary["fabric_uncontended_comm_s"] = uncontended
         summary["fabric_contention_delay_s"] = exposed - uncontended
+    if telemetry is not None:
+        summary.update(telemetry.summary_fields())
     return Report(
         name=spec.name,
         spec=spec.to_dict(),

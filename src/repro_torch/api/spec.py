@@ -661,12 +661,6 @@ class MemorySpec:
 
 PREDICTOR_BACKENDS = ("python", "numpy", "jit")
 
-# A spec may carry these sections (they are parsed and hashed as the
-# reference does), but nothing runs them until ROADMAP Queue A item 7
-# ports the fleet and observability layers.
-NOT_PORTED = ("{}: {} is not ported yet (ROADMAP Queue A item 7); this "
-              "spec cannot run without it, and the section is never dropped")
-
 
 @dataclass
 class OpModelSpec:
@@ -760,9 +754,8 @@ class FaultSpec:
 # ------------------------------------------------------------------ obs ----
 @dataclass
 class ObsSpec:
-    """Observability (the ``obs`` layer, ROADMAP Queue A item 7, not yet
-    ported: an enabled section raises at validation): request spans,
-    sim-time counters, and trace export.
+    """Observability (see ``repro_torch.obs``): request spans, sim-time
+    counters, and trace export.
 
     Off unless the spec carries this section (``obs: {}`` enables
     everything but EP spans).  ``ep_spans`` additionally records the
@@ -847,8 +840,7 @@ class TenantSpec:
 
 @dataclass
 class AutoscalerSpec:
-    """SLO-driven fleet autoscaling (the fleet layer's autoscaler, not yet
-    ported).
+    """SLO-driven fleet autoscaling (see ``repro_torch.fleet.autoscaler``).
 
     Every ``interval_s`` the autoscaler compares mean outstanding requests
     per active instance against ``up_queue_depth`` / ``down_queue_depth``
@@ -891,7 +883,7 @@ class FleetSpec:
     """A multi-instance serving fleet behind one global router.
 
     ``instances`` lists heterogeneous instance groups; ``router`` names a
-    registered fleet routing policy (the fleet layer's ``FLEET_ROUTERS``:
+    registered fleet routing policy (``repro_torch.fleet.FLEET_ROUTERS``:
     round_robin | least_outstanding | power_of_two | prefix_affinity,
     optionally ``{"name": ..., **kwargs}``); ``autoscaler`` enables
     SLO-driven scaling; ``tenants`` declares tenant classes with per-class
@@ -962,6 +954,68 @@ class FleetSpec:
     def total_instances(self) -> int:
         return sum(i.count for i in self.instances)
 
+    # --------------------------------------------------------- validation --
+    def validate(self, default_topology: TopologySpec) -> None:
+        from repro_torch.fleet.router import resolve_fleet_router
+        if not self.instances:
+            raise SpecError("fleet.instances: a fleet needs at least one "
+                            "instance group")
+        names = [i.name for i in self.instances]
+        if len(set(names)) != len(names):
+            raise SpecError(f"fleet.instances: duplicate group names "
+                            f"{names}")
+        for i, inst in enumerate(self.instances):
+            if inst.count < 1:
+                raise SpecError(f"fleet.instances[{i}].count: must be >= 1, "
+                                f"got {inst.count}")
+            (inst.topology or default_topology).validate()
+            if inst.pipeline is not None:
+                inst.pipeline.validate()
+            if inst.memory is not None:
+                inst.memory.validate()
+        try:
+            resolve_fleet_router(self.router)
+        except (KeyError, TypeError) as e:
+            raise SpecError(f"fleet.router: {e}") from e
+        if self.engine not in ("serial", "windowed"):
+            raise SpecError(f"fleet.engine: unknown engine mode "
+                            f"{self.engine!r}; available: "
+                            f"['serial', 'windowed']")
+        if self.window_s < 0:
+            raise SpecError(f"fleet.window_s: must be >= 0, "
+                            f"got {self.window_s}")
+        if self.autoscaler is not None:
+            a = self.autoscaler
+            if a.min_instances < 1 or a.max_instances < a.min_instances:
+                raise SpecError(
+                    f"fleet.autoscaler: need 1 <= min_instances <= "
+                    f"max_instances, got ({a.min_instances}, "
+                    f"{a.max_instances})")
+            if a.interval_s <= 0 or a.cooldown_s < 0:
+                raise SpecError("fleet.autoscaler: interval_s must be > 0 "
+                                "and cooldown_s >= 0")
+            if a.provision_bw <= 0:
+                raise SpecError(f"fleet.autoscaler.provision_bw: must be "
+                                f"> 0, got {a.provision_bw}")
+            if a.slo_attainment_floor is not None \
+                    and not 0.0 < a.slo_attainment_floor <= 1.0:
+                raise SpecError(f"fleet.autoscaler.slo_attainment_floor: "
+                                f"must be in (0, 1], got "
+                                f"{a.slo_attainment_floor}")
+            if a.pd_spares < 0 or a.rebalance_ratio <= 1.0:
+                raise SpecError("fleet.autoscaler: pd_spares must be >= 0 "
+                                "and rebalance_ratio > 1")
+            if a.template is not None:
+                self.instance_by_name(a.template)
+        tnames = [t.name for t in self.tenants]
+        if len(set(tnames)) != len(tnames):
+            raise SpecError(f"fleet.tenants: duplicate tenant names "
+                            f"{tnames}")
+        for i, t in enumerate(self.tenants):
+            if t.weight <= 0:
+                raise SpecError(f"fleet.tenants[{i}].weight: must be > 0, "
+                                f"got {t.weight}")
+
 
 # -------------------------------------------------------------- SimSpec ----
 @dataclass
@@ -1013,13 +1067,30 @@ class SimSpec:
             self.slo.validate()
         if self.obs is not None:
             self.obs.validate()
-            if self.obs.enabled:
-                raise SpecError(NOT_PORTED.format(
-                    "obs", "the observability layer (obs/)"))
         if self.fleet is not None:
-            raise SpecError(NOT_PORTED.format(
-                "fleet", "the fleet control plane (fleet/)"))
+            self.fleet.validate(self.topology)
+            if self.workload.arrival == "closed":
+                raise SpecError(
+                    "workload.arrival: closed-loop injection is per-"
+                    "instance; fleet runs route open-loop arrivals through "
+                    "the global router — use poisson/uniform/burst")
+            if self.workload.turns > 1:
+                raise SpecError(
+                    "workload.turns: multi-turn conversations pin a growing "
+                    "prefix to one instance's cache; fleet routing of "
+                    "conversation turns is not modeled yet — use "
+                    "prefix_groups for shared-prefix fleet workloads")
         names = self.topology.cluster_names()
+        if self.fleet is not None:
+            # the policy section is shared by EVERY instance, so a
+            # cluster-keyed batching key must exist in every group's
+            # topology (roles always resolve) — the intersection, not the
+            # union, or one group's build would reject the key mid-run
+            shared = None
+            for inst in self.fleet.instances:
+                cn = set((inst.topology or self.topology).cluster_names())
+                shared = cn if shared is None else shared & cn
+            names = sorted(shared or set())
         if self.policy._role_keyed():
             # role-keyed batching: a misspelled key would silently fall
             # back to the default policy, so reject unknown keys here
@@ -1032,10 +1103,19 @@ class SimSpec:
                     f"roles: {sorted(ROLES)}, clusters: {names} (or give "
                     f"one policy for all clusters as {{'name': ...}})")
         for i, f in enumerate(self.faults):
-            if f.instance is not None:
-                raise SpecError(f"faults[{i}].instance: only fleet "
-                                f"specs have named instances")
-            f.validate(names, f"faults[{i}]")
+            if self.fleet is not None:
+                # the fault lands on ONE instance group (named, or the
+                # first) — validate the cluster against THAT group's
+                # topology, not the union, so a group/cluster mismatch
+                # fails here and not mid-build
+                group = self.fleet.instance_by_name(f.instance)
+                f.validate((group.topology or self.topology)
+                           .cluster_names(), f"faults[{i}]")
+            else:
+                if f.instance is not None:
+                    raise SpecError(f"faults[{i}].instance: only fleet "
+                                    f"specs have named instances")
+                f.validate(names, f"faults[{i}]")
         if self.until is not None and self.until <= 0:
             raise SpecError(f"until: must be > 0 seconds, got {self.until}")
         return self

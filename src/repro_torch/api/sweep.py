@@ -130,7 +130,11 @@ def sweep(base: SimSpec, axes: Mapping[str, Sequence[Any]], *,
         futures = [pool.submit(_sweep_worker, a) for a in args]
         for fut in as_completed(futures):
             i, rep_dict = fut.result()
-            rep = Report.from_dict(rep_dict)
+            if "instances" in rep_dict:      # fleet point
+                from repro_torch.fleet import FleetReport
+                rep = FleetReport.from_dict(rep_dict)
+            else:
+                rep = Report.from_dict(rep_dict)
             results[i] = rep
             _stream(jsonl, rep)
             done += 1

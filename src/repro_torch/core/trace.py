@@ -1,6 +1,7 @@
 """Event tracing: in-memory ring + Chrome trace-event export."""
 from __future__ import annotations
 
+import json
 from collections import deque
 from typing import Deque, List, Optional
 
@@ -23,11 +24,15 @@ class EventTrace:
     def to_chrome_trace(self, path: str) -> None:
         """Chrome trace-event export of the raw ring.
 
-        The export is a thin shim over the observability layer's chrome
-        sink, which is not ported yet (ROADMAP Queue A item 7), so this
-        raises rather than write nothing.
+        .. deprecated::
+            Thin shim over
+            :func:`repro_torch.obs.sinks.engine_events_to_chrome` (which fixed
+            the negative-``ts`` clamp and honours ``dur`` on any event
+            kind, not just BATCH_DONE).  Prefer the span-level
+            observability layer: ``SimSpec(obs=ObsSpec())`` +
+            ``repro_torch.obs.write_chrome_trace``.
         """
-        raise NotImplementedError(
-            "EventTrace.to_chrome_trace: the chrome sink lives in the "
-            "observability layer (obs/), which is ROADMAP Queue A item 7 "
-            "and not ported yet")
+        from repro_torch.obs.sinks import engine_events_to_chrome
+        with open(path, "w") as f:
+            json.dump({"traceEvents": engine_events_to_chrome(self.events)},
+                      f)

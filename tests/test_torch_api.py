@@ -1,8 +1,7 @@
 """The port's declarative API and command line against the reference's:
 the same bad spec raises the same ``SpecError`` text in both; ``python -m
-repro_torch`` runs, sweeps and lists on the CPU; a spec that needs the fleet
-or observability layer (ROADMAP Queue A item 7) is refused, never run with
-the section dropped."""
+repro_torch`` runs, sweeps, traces and lists on the CPU; a spec with a
+``fleet`` or an enabled ``obs`` section runs as the reference runs it."""
 import json
 import os
 import subprocess
@@ -58,6 +57,13 @@ def test_bad_spec_raises_the_reference_text(case):
     assert _error(T, BAD[case]) == _error(R, BAD[case])
 
 
+def _blob(rep):
+    d = json.loads(rep.to_json())
+    d.pop("wall_clock_s")
+    d.pop("created_at")
+    return json.dumps(d, sort_keys=True)
+
+
 @pytest.mark.parametrize("section,body", [
     ("fleet", {"fleet": {"instances": [{"name": "a", "count": 2}]}}),
     ("obs", {"obs": {}}),
@@ -65,20 +71,32 @@ def test_bad_spec_raises_the_reference_text(case):
 ])
 def test_fleet_and_obs_specs_raise_naming_item_7(section, body, tmp_path,
                                                  capsys):
+    """Once refused (ROADMAP item 7), a ``fleet`` or enabled ``obs``
+    section now parses, hashes, validates and runs as in the reference:
+    ``run`` and the CLI give the reference's report, and ``build`` refuses
+    a fleet spec with the reference's text, as the reference does."""
     spec = T.SimSpec.from_dict(dict(SMALL, **body))
-    # parsed and hashed as the reference does
-    assert spec.to_dict() == R.SimSpec.from_dict(dict(SMALL, **body)).to_dict()
-    assert spec.spec_hash() == R.SimSpec.from_dict(dict(SMALL, **body)).spec_hash()
-    for call in (spec.validate, lambda: T.run(spec, device="cpu"),
-                 lambda: T.build(spec, device="cpu")):
-        with pytest.raises(T.SpecError, match=rf"^{section}: .*item 7"):
-            call()
+    ref_spec = R.SimSpec.from_dict(dict(SMALL, **body))
+    assert spec.to_dict() == ref_spec.to_dict()
+    assert spec.spec_hash() == ref_spec.spec_hash()
+    spec.validate()
+    want = R.run(ref_spec)
+    assert _blob(T.run(spec, device="cpu")) == _blob(want)
+    assert any(k.startswith(section) for k in want.summary)
+    if section == "fleet":
+        with pytest.raises(T.SpecError) as port_err:
+            T.build(spec, device="cpu")
+        with pytest.raises(R.SpecError) as ref_err:
+            R.build(ref_spec)
+        assert str(port_err.value) == str(ref_err.value).replace(
+            "repro.", "repro_torch.")
     p = tmp_path / "s.json"
     p.write_text(json.dumps(dict(SMALL, **body)))
     assert cli.main(["run", str(p), "--device", "cpu",
-                     "-o", str(tmp_path)]) == 2
-    assert "item 7" in capsys.readouterr().err
-    assert not list(tmp_path.glob("*.report.json"))
+                     "-o", str(tmp_path)]) == 0
+    assert "item 7" not in capsys.readouterr().err
+    got = json.loads((tmp_path / "cli-test.report.json").read_text())
+    assert got["summary"] == json.loads(want.to_json())["summary"]
 
 
 def test_disabled_obs_runs_as_the_reference():
@@ -90,9 +108,26 @@ def test_disabled_obs_runs_as_the_reference():
 
 
 def test_chrome_export_waits_for_the_obs_layer(tmp_path):
+    """``EventTrace.to_chrome_trace`` no longer waits: the observability
+    layer's sink writes it, and the raw ring of a real run exports to the
+    same file as the reference's."""
+    from repro.core.engine import SimEngine as RSimEngine
+    from repro.core.trace import EventTrace as RTrace
+    from repro_torch.core.engine import SimEngine
     from repro_torch.core.trace import EventTrace
-    with pytest.raises(NotImplementedError, match="item 7"):
-        EventTrace().to_chrome_trace(str(tmp_path / "t.json"))
+    out = {}
+    for name, pkg, trace, engine in (("port", T, EventTrace(), SimEngine),
+                                     ("ref", R, RTrace(), RSimEngine)):
+        kw = {"device": "cpu"} if pkg is T else {}
+        spec = pkg.SimSpec.from_dict(SMALL)
+        handle = pkg.build(spec, engine=engine(trace=trace), **kw)
+        handle.run(spec.workload.build_requests(spec.seed))
+        path = tmp_path / f"{name}.json"
+        trace.to_chrome_trace(str(path))
+        out[name] = path.read_bytes()
+    events = json.loads(out["port"])["traceEvents"]
+    assert events and all(e["ts"] >= 0 for e in events)
+    assert out["port"] == out["ref"]
 
 
 def test_cli_run_sweep_and_list_on_cpu(tmp_path, capsys):
@@ -117,11 +152,17 @@ def test_cli_run_sweep_and_list_on_cpu(tmp_path, capsys):
     assert cli.main(["list"]) == 0
     text = capsys.readouterr().out
     assert "models" in text and "mixtral-8x7b" in text
-    assert "fleet routers:\n  (not yet ported: ROADMAP Queue A item 7)" in text
+    assert ("fleet routers:\n  least_outstanding\n  power_of_two\n"
+            "  prefix_affinity\n  round_robin\n") in text
     assert cli.main(["run", str(tmp_path / "missing.json"),
                      "--device", "cpu"]) == 2
-    with pytest.raises(SystemExit):
-        cli.main(["trace", str(spec_path)])        # waits for item 7
+    assert cli.main(["trace", str(spec_path), "--device", "cpu",
+                     "-o", out]) == 0
+    trace = json.load(open(os.path.join(out, "cli-test.trace.json")))
+    body = [e["ts"] for e in trace["traceEvents"] if e["ph"] != "M"]
+    assert body and body == sorted(body) and body[0] >= 0
+    for ext in ("spans.jsonl", "summary.txt", "report.json"):
+        assert os.path.isfile(os.path.join(out, f"cli-test.{ext}"))
 
 
 def test_cli_rejects_bad_spec(tmp_path, capsys):

@@ -178,8 +178,8 @@ def test_cli_calibrate_on_cpu(tmp_path, capsys):
 
 
 def test_cli_surface():
-    with pytest.raises(SystemExit):
-        cli.main(["trace", "spec.yaml"])       # not registered yet
+    # registered now: a spec that is not there is refused as ``run`` does
+    assert cli.main(["trace", "missing-spec.json", "--device", "cpu"]) == 2
     with pytest.raises(SystemExit):
         cli.main(["calibrate", "--oracle", "pallas"])
     assert cli.main(["calibrate", "--device", "cpu", "--oracle", "kernelsim",

@@ -1,7 +1,7 @@
-"""The port's ``run`` against the reference's golden reports: the specs of
-``tests/test_golden.py`` that need neither the fleet nor the observability
-layer, held to ``tests/golden/*.json`` with that file's comparison (exact
-``spec_hash``, every float to 1e-6 relative)."""
+"""The port's ``run`` against the reference's golden reports: every spec
+of ``tests/test_golden.py``, the fleet spec included, held to
+``tests/golden/*.json`` with that file's comparison (exact ``spec_hash``,
+every float to 1e-6 relative)."""
 import json
 
 import pytest
@@ -9,7 +9,8 @@ import pytest
 from repro_torch.api import SimSpec, run
 from test_golden import GOLDEN_DIR, SPECS, _diff
 
-PORTED = ("colocated", "pd_disagg", "af_moe", "memory_pd", "fabric_af")
+PORTED = ("colocated", "pd_disagg", "af_moe", "memory_pd", "fabric_af",
+          "fleet_pd")
 
 
 def _report(preset):
@@ -36,13 +37,23 @@ def test_port_fabric_run_shows_contention():
 
 
 def test_goldens_left_to_the_fleet_and_obs_layers_raise():
-    """``fleet_pd`` (and any obs-enabled spec) waits for ROADMAP item 7: the
-    port refuses it rather than run it with the section dropped."""
-    from repro_torch.api import SpecError
+    """No golden is left to the fleet and observability layers any more:
+    every spec of ``tests/test_golden.py`` runs through the port, and the
+    fleet golden's whole report (its instances, tenants and scale events,
+    not only the summary the golden pins) equals the reference's report of
+    the same spec, byte for byte but for the moment of the run."""
+    import repro.api as R
     left = sorted(set(SPECS) - set(PORTED))
-    assert left == ["fleet_pd"]
+    assert left == []
     spec = SimSpec.from_dict(SPECS["fleet_pd"])
     assert spec.spec_hash() == json.loads(
         (GOLDEN_DIR / "fleet_pd.json").read_text())["spec_hash"]
-    with pytest.raises(SpecError, match="item 7"):
-        run(spec, device="cpu")
+    blobs = []
+    for rep in (run(spec, device="cpu"),
+                R.run(R.SimSpec.from_dict(SPECS["fleet_pd"]))):
+        d = json.loads(rep.to_json())
+        d.pop("wall_clock_s")
+        d.pop("created_at")
+        blobs.append(json.dumps(d, sort_keys=True))
+    assert blobs[0] == blobs[1]
+    assert len(json.loads(blobs[0])["instances"]) == 3   # colo x2, pd x1
