@@ -10,10 +10,11 @@ mixtral-8x7b), simulate colocated, PD and AF deployments of mixtral-8x7b
 priced by that fit (``python -m repro_torch run``) and the fleet and
 observability layers (``run``, ``trace``), hold the simulator's prediction
 of qwen2-7b and mixtral-8x7b to ``MiniEngine``'s measured throughput (the
-paper's Table 2, ``repro_torch.launch.serve``), and serve rwkv6-1.6b at
-full width through ``MiniEngine``, whose prefill runs the chunked WKV6
-kernel in every layer.  Phases, one JSON line each (``simulate``,
-``table2`` one per run or cell and one for the phase):
+paper's Table 2, ``repro_torch.launch.serve``), serve rwkv6-1.6b at full
+width through ``MiniEngine``, whose prefill runs the chunked WKV6 kernel in
+every layer, and train yi-9b at full width (``repro_torch.launch.train``, a
+path that launches no kernel: none has a backward).  Phases, one JSON line
+each (``simulate``, ``table2`` one per run or cell and one for the phase):
 
 1. ``env``        the card as ``nvidia-smi`` names it, torch and CUDA versions
 2. ``build``      compiles ``src/repro_torch/kernels/csrc/*.cu``
@@ -80,6 +81,21 @@ kernel in every layer.  Phases, one JSON line each (``simulate``,
                   be launched once per layer per prefill, and every request's
                   tokens must equal a greedy loop over the model's own
                   ``prefill``/``decode``
+10. ``train``     yi-9b at full width in f32, random weights from a seed:
+                  (a) one ``make_train_step`` of one layer on 1 x 128
+                  ``SyntheticLM`` tokens on the card and on the CPU from the
+                  same weights: the loss within 1e-5 relative, each leaf's
+                  gradients within 1e-4 of its largest, and the card's AdamW
+                  on the CPU's gradients within 1e-5 of the CPU's step
+                  (``train_parity``); (b) ``repro_torch.launch.train.run``
+                  of 8 layers, 12 steps of 2 x 4096 tokens, ``remat="full"``:
+                  finite losses, the last below the first, no kernel
+                  launched, read as step ms, tok/s, model TFLOP/s and peak
+                  memory; (c) ``python -m repro_torch.launch.train`` of
+                  qwen3-8b's smoke geometry in a subprocess, 10 steps and a
+                  checkpoint, then 10 resumed steps: the last loss within
+                  2e-4 of a straight 20-step run (tests/test_training.py's
+                  gate)
 
 Any failing phase makes the exit code non-zero.  There is no CPU path: without
 a CUDA device the script fails.  The line before the card's name lists every
@@ -96,6 +112,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -123,10 +140,15 @@ from repro_torch.core.routing import BalancedRouting  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.wkv_chunk import wkv_chunked_plain  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import AxisRules, build_model, init_tree  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.models.common import tree_map  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving.engine import MiniEngine  # noqa: E402
+from repro_torch.training import checkpoint as ckpt  # noqa: E402
+from repro_torch.training.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.training.optimizer import (  # noqa: E402
+    AdamW, AdamWConfig, make_train_step)
 
 # The main path's own sizes: the oracle's accelerator limits and a sample count
 # that keeps the whole script well inside its time limit.
@@ -1404,6 +1426,181 @@ def phase_serve() -> dict:
     return counts
 
 
+# ------------------------------------------------------------------- train --
+# Phase ``train``: yi-9b at full width in f32 (TF32 off, as main() leaves it).
+TRAIN_ARCH = "yi-9b"
+TRAIN_RUN = dict(smoke=False, layers=8, steps=12, seq_len=4096, global_batch=2,
+                 lr=3e-4, remat="full")
+TRAIN_GRAD_TOKENS = 128              # (a): one batch of 1 x 128 tokens, 1 layer
+TOL_TRAIN_LOSS_REL, TOL_TRAIN_GRAD_REL, TOL_TRAIN_PARAM = 1e-5, 1e-4, 1e-5
+# (c): the reference test's resume (tests/test_training.py) through the CLI
+RESUME_ARGS = ["--arch", "qwen3-8b", "--seq-len", "32", "--global-batch", "2",
+               "--seed", "7", "--log-every", "100"]
+RESUME_TOL = 2e-4
+
+
+def train_step_on(device: str, cfg, host_params, batch) -> tuple:
+    """One ``make_train_step`` of ``cfg`` on ``device`` from a copy of
+    ``host_params``: (loss, gradient tree, updated parameter tree)."""
+    params = tree_map(lambda t: t.to(device, copy=True), host_params)
+    model = build_model(cfg, params=params)
+    model.requires_grad_(True)
+    opt = AdamW(AdamWConfig(zero1=False), model.ax)
+    step = make_train_step(model, opt)
+    params, _, metrics = step(params, opt.init(params),
+                              {k: torch.from_numpy(v).to(device)
+                               for k, v in batch.items()})
+    return float(metrics["loss"]), tree_map(lambda p: p.grad, model.param_tree()), params
+
+
+def train_parity() -> dict:
+    """(a) one f32 AdamW step of full-width yi-9b (one layer) on the card and
+    on the CPU from the same weights and batch: the loss within 1e-5
+    relative, each leaf's gradients within 1e-4 of its largest, the updated
+    parameters within 1e-5.
+
+    Adam's first step is ``lr * g / (|g| + eps)``, steep where ``|g|`` is
+    near ``eps``: there a gradient's rounding (held at 1e-4 above) moves the
+    step by up to ``lr / 4 * |dg| / eps``.  So the parameters are held where
+    that cannot reach them: the card's AdamW, handed the CPU's gradients,
+    must give the CPU's parameters within 1e-5 (the update's arithmetic is
+    the same on both), and the entries the full steps put more than 1e-5
+    apart, through their gradients, are counted."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=1)
+    gen = torch.Generator().manual_seed(0)
+    host = init_tree(gen, build_model(cfg).pds(), torch.float32, "cpu")
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_GRAD_TOKENS, 1)).batch(0)
+    t0 = time.perf_counter()
+    loss_c, grads_c, params_c = train_step_on("cuda", cfg, host, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_h, grads_h, params_h = train_step_on("cpu", cfg, host, batch)
+    cpu_s = time.perf_counter() - t0
+    if not abs(loss_c - loss_h) <= TOL_TRAIN_LOSS_REL * abs(loss_h):
+        fail(f"train: card loss {loss_c!r} != CPU loss {loss_h!r}")
+    # the card's AdamW on the CPU's gradients
+    params_x = tree_map(lambda t: t.to("cuda", copy=True), host)
+    opt = AdamW(AdamWConfig(zero1=False), AxisRules(None))
+    params_x, _ = opt.update(params_x, tree_map(lambda g: g.to("cuda"), grads_h),
+                             opt.init(params_x))
+    worst = {"grad_rel": (0.0, ""), "param_abs": (0.0, ""),
+             "param_abs_given_cpu_grads": (0.0, "")}
+    steep = 0
+    for (path, g_card), g_host, p_card, p_host, p_x in zip(
+            ckpt.flatten(grads_c).items(), tree_leaves(grads_h), tree_leaves(params_c),
+            tree_leaves(params_h), tree_leaves(params_x)):
+        g_err = float((g_card.cpu() - g_host).abs().max()) / float(g_host.abs().max())
+        off = (p_card.detach().cpu() - p_host.detach()).abs()
+        x_err = float((p_x.cpu() - p_host.detach()).abs().max())
+        if not g_err <= TOL_TRAIN_GRAD_REL:
+            fail(f"train: gradient of {path} {g_err:.3e} of its largest from the CPU's")
+        if not x_err <= TOL_TRAIN_PARAM:
+            fail(f"train: the card's AdamW on the CPU's gradients puts {path} "
+                 f"{x_err:.3e} from the CPU's")
+        steep += int((off > TOL_TRAIN_PARAM).sum())
+        for key, err in (("grad_rel", g_err), ("param_abs", float(off.max())),
+                         ("param_abs_given_cpu_grads", x_err)):
+            worst[key] = max(worst[key], (err, path))
+    return {"layers": 1, "tokens": TRAIN_GRAD_TOKENS, "loss": {"cuda": loss_c, "cpu": loss_h},
+            "worst_leaf": {k: {"leaf": v[1], "err": v[0]} for k, v in worst.items()},
+            "entries_past_1e-5_by_their_gradient": steep,
+            "step_s": {"cuda_first": card_s, "cpu": cpu_s}}
+
+
+def model_flops(cfg, tokens: int, seq_len: int, batch: int) -> float:
+    """Model FLOPs of one training step: 6 N per token for the N weights of
+    the matrix products (every layer's projections and FFN, and the head;
+    not the embedding, a gather), plus attention's two S x S products over
+    the full square as the naive path computes them, 4 B S^2 H hd a layer
+    forward, three times that with backward.  Remat's recompute not counted."""
+    pds = build_model(cfg).pds()
+    n = sum(math.prod(pd.shape) for pd in tree_leaves(pds["layers"])
+            if len(pd.shape) > 1) + math.prod(pds["head"].shape)
+    attn = 12 * cfg.num_layers * batch * seq_len ** 2 * cfg.num_heads \
+        * cfg.resolved_head_dim
+    return 6 * n * tokens + attn
+
+
+def train_full_width(card: str) -> dict:
+    """(b) ``launch.train.run`` of yi-9b at full width, TRAIN_RUN's layers and
+    steps: finite losses, the last below the first, and no kernel launched."""
+    before = ops.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(sys.stderr):       # its log lines
+        out = train_launch.run(TRAIN_ARCH, device="cuda", log_every=1,
+                               **TRAIN_RUN)
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"train: full-width losses not finite and falling: {losses}")
+    if ops.launch_counts() != before:
+        fail(f"train: kernels launched on the training path: "
+             f"{ops.launch_counts()} against {before}")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_RUN["layers"])
+    tokens = TRAIN_RUN["seq_len"] * TRAIN_RUN["global_batch"]
+    first_s, steady = out["step_s"][0], out["step_s"][1:]
+    step_s = statistics.fmean(steady)
+    flops = model_flops(cfg, tokens, TRAIN_RUN["seq_len"], TRAIN_RUN["global_batch"])
+    n_params = sum(p.numel() for p in tree_leaves(out["params"]))
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"card": card, "arch": TRAIN_ARCH, **TRAIN_RUN, "dtype": "f32",
+            "params": n_params, "losses": losses,
+            "step_ms": {"mean": step_s * 1e3, "min": min(steady) * 1e3,
+                        "max": max(steady) * 1e3, "first": first_s * 1e3},
+            "tokens_per_s": tokens / step_s,
+            "model_tflop_per_step": flops / 1e12,
+            "model_tflop_s": flops / step_s / 1e12,
+            "flops_formula": "6*N*B*S + 12*L*B*S^2*H*hd, N = matmul weights",
+            "peak_mem_gb": peak / 1e9}
+
+
+def train_resume(out_dir: str) -> dict:
+    """(c) ``python -m repro_torch.launch.train`` in a subprocess: 10 steps
+    with a checkpoint at 10, then 10 resumed steps (checkpointed at 20, its
+    manifest holding the last loss), against a straight 20-step run."""
+    ck = os.path.join(out_dir, "ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    logs = []
+    for extra in (["--steps", "10", "--ckpt-every", "10"],
+                  ["--steps", "10", "--ckpt-every", "10", "--resume"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *RESUME_ARGS,
+             "--ckpt-dir", ck, *extra], cwd=ROOT, env=env, timeout=600,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(proc.stdout)
+        if proc.returncode != 0:
+            fail(f"train: the CLI exited with {proc.returncode}: {proc.stdout[-2000:]}")
+            return {"logs": logs}
+    if "resumed from step 10" not in logs[1]:
+        fail("train: the second CLI run did not resume from step 10")
+    with open(os.path.join(ck, "step_00000020", "manifest.json")) as f:
+        resumed = json.load(f)["extra"]["loss"]
+    straight = train_launch.run("qwen3-8b", steps=20, seq_len=32, global_batch=2,
+                                seed=7, log_every=100, device="cuda")["last_loss"]
+    if not abs(resumed - straight) <= RESUME_TOL * (1 + abs(straight)):
+        fail(f"train: resumed loss {resumed!r} != straight run's {straight!r}")
+    return {"resumed_last_loss": resumed, "straight_last_loss": straight,
+            "diff": abs(resumed - straight)}
+
+
+def phase_train(card: str) -> None:
+    t0 = time.perf_counter()
+    parity = train_parity()
+    gc.collect()
+    stop_if_failed("train")
+    full = train_full_width(card)
+    stop_if_failed("train")
+    resume = train_resume(os.path.join(ROOT, "build", "train"))
+    say("train", ok=not FAILURES, grads_cuda_vs_cpu=parity, full_width=full,
+        resume=resume, wall_s=time.perf_counter() - t0)
+    stop_if_failed("train")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ptxas", action="store_true",
@@ -1426,6 +1623,7 @@ def main(argv=None) -> int:
     phase_refit(oracle, out_root, out2_root, af_fit1)
     phase_table2([out_root, out2_root])
     counts["wkv_chunked"] = phase_serve()["wkv_chunked"]
+    phase_train(card)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],

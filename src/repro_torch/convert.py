@@ -1,8 +1,8 @@
 """State carried between the reference package and this one.
 
 Both directions go through plain data, never through an import of the other
-package: parameter trees as nested dicts of numpy arrays, calibration
-artifacts as the JSON dicts ``save_artifact`` writes.
+package: parameter trees and AdamW state as nested dicts of numpy
+arrays, calibration artifacts as the JSON dicts ``save_artifact`` writes.
 """
 from __future__ import annotations
 
@@ -158,3 +158,26 @@ def lm_params_to_reference(cfg: ModelConfig, params) -> Dict[str, Any]:
         enc["norm"] = np_(params["enc"]["norm"])
         return {"enc": enc, "dec": lm(cfg, params["dec"])}
     return lm(cfg, params)
+
+
+# ------------------------------------------------------------ train state --
+# AdamW's state is {"m": tree, "v": tree, "step": int32 scalar} in both
+# packages, the moments laid out as the parameters; they cross as the
+# parameters do, the moments keeping their own (float32) dtype.
+def train_state_from_reference(cfg: ModelConfig, params, opt_state,
+                               device="cuda", dtype=None):
+    """The reference's ``(params, opt_state)`` for ``cfg`` (nested numpy
+    arrays) as this package's, on ``device``: ``dtype`` casts the parameters
+    only.  ``make_train_step`` continues from the result."""
+    opt = {k: lm_params_from_reference(cfg, opt_state[k], device)
+           for k in ("m", "v")}
+    opt["step"] = torch.tensor(int(np.asarray(opt_state["step"])),
+                               dtype=torch.int32, device=device)
+    return lm_params_from_reference(cfg, params, device, dtype), opt
+
+
+def train_state_to_reference(cfg: ModelConfig, params, opt_state):
+    """The reverse, as nested numpy arrays (bf16 leaves as float32)."""
+    opt = {k: lm_params_to_reference(cfg, opt_state[k]) for k in ("m", "v")}
+    opt["step"] = np.asarray(int(opt_state["step"]), dtype=np.int32)
+    return lm_params_to_reference(cfg, params), opt

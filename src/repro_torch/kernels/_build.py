@@ -140,6 +140,19 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when autograd would record a kernel call: the kernels write their
+    outputs through raw pointers, so the result would carry no ``grad_fn``
+    and every gradient upstream of it would silently be zero."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and neither has the "
+            "reference's Pallas kernel; call it under torch.no_grad(), or "
+            "differentiate its plain version on the CPU")
+
+
 def dtype_code(dtype) -> int:
     import torch
     if dtype == torch.float32:

@@ -87,6 +87,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return decode_attention_plain(q, k, v, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
+    _build.refuse_grad("decode_attention", q, k, v)
     B, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     if hd not in (128, 256):

@@ -64,6 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _build.refuse_grad("flash_attention", q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     if hd not in (128, 256):

@@ -91,6 +91,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
         return grouped_gemm_plain(x, w, group_sizes)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_gemm runs on cuda or cpu, not {x.device}")
+    _build.refuse_grad("grouped_gemm", x, w)
     E, C, din = x.shape
     dout = w.shape[2]
     if w.shape[:2] != (E, din) or group_sizes.shape != (E,):

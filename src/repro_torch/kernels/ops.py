@@ -4,6 +4,13 @@ On a CUDA tensor each wrapper launches its kernel (built from ``csrc/`` at
 first use); on a CPU tensor it runs the kernel's plain PyTorch version.  The
 choice follows the tensor's device and nothing else.
 
+No kernel has a backward, in this package or in the reference (whose Pallas
+kernels define no ``custom_vjp``).  On a CUDA tensor a wrapper therefore
+raises ``RuntimeError`` when grad is enabled and an input requires grad,
+rather than return a result detached from the graph; it never falls back to
+the plain version there.  On a CPU tensor the plain version runs and is
+differentiable.  So rwkv6 trains on ``rwkv_impl="scan"`` on the card.
+
 Head dims that are not a multiple of 128 (kimi's 112) are zero-padded to the
 next multiple of 128 here, not inside the kernels, and ``q`` is rescaled by
 ``hd**-0.5 / padded**-0.5`` so the kernel's own ``padded**-0.5`` comes out as

@@ -130,6 +130,7 @@ def wkv_chunked(r, k, v, w, u, *, chunk: int = 16,
                                  out_dtype=out_dtype)
     if r.device.type != "cuda":
         raise ValueError(f"wkv_chunked runs on cuda or cpu, not {r.device}")
+    _build.refuse_grad("wkv_chunked", r, k, v, w, u, state0)
     B, T, H, hs = r.shape
     C = chunk_len(T, chunk)
     if any(x.shape != r.shape for x in (k, v, w)) or u.shape != (H, hs):

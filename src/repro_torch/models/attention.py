@@ -8,9 +8,11 @@ call the Pallas attention kernels, and neither does the port.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (
@@ -85,21 +87,21 @@ def _sdpa(cfg: ModelConfig, q, k, v, bias) -> torch.Tensor:
 def _sdpa_blockwise(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal: bool,
                     window: int, block: int = 1024) -> torch.Tensor:
     """Online-softmax attention over KV blocks of ``block`` keys: only a
-    (B,K,G,S,block) score tile exists at a time."""
+    (B,K,G,S,block) score tile exists at a time.  When grad is enabled each
+    block's body runs under ``torch.utils.checkpoint``, so backward recomputes
+    its scores instead of keeping every tile (the reference's
+    ``jax.checkpoint(body, policy=nothing_saveable)``)."""
     B, S, K, G, hd = q.shape
     T = k.shape[1]
     scale = hd ** -0.5
     nb = (T + block - 1) // block
     qf = q.float()
-    m = torch.full((B, K, G, S), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, K, G, S), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, K, G, S, hd), dtype=torch.float32, device=q.device)
-    for ib in range(nb):
-        sl = slice(ib * block, min((ib + 1) * block, T))
-        s = torch.einsum("bskgd,btkd->bkgst", qf, k[:, sl].float()) * scale
+
+    def body(m, l, acc, kblk, vblk, pblk):
+        s = torch.einsum("bskgd,btkd->bkgst", qf, kblk.float()) * scale
         if cfg.attn_logit_softcap:
             s = softcap(s, cfg.attn_logit_softcap)
-        ok = _valid(q_pos, k_pos[sl], causal=causal, window=window)
+        ok = _valid(q_pos, pblk, causal=causal, window=window)
         s = s.masked_fill(~ok[None, None, None], NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -107,8 +109,19 @@ def _sdpa_blockwise(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal: bool,
         alpha = torch.where(m == NEG_INF, 0.0, torch.exp(m - m_new))
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum(
-            "bkgst,btkd->bkgsd", p, v[:, sl].float())
-        m = m_new
+            "bkgst,btkd->bkgsd", p, vblk.float())
+        return m_new, l, acc
+
+    step = body
+    if torch.is_grad_enabled():
+        step = functools.partial(checkpoint, body, use_reentrant=False)
+
+    m = torch.full((B, K, G, S), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, K, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, G, S, hd), dtype=torch.float32, device=q.device)
+    for ib in range(nb):
+        sl = slice(ib * block, min((ib + 1) * block, T))
+        m, l, acc = step(m, l, acc, k[:, sl], v[:, sl], k_pos[sl])
     out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)          # (B,S,K,G,hd)
 

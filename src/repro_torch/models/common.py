@@ -47,6 +47,13 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_leaves(tree: Any) -> list:
+    """The leaves of nested dicts, tuples and lists, in ``tree_map``'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
 def _init_one(gen: torch.Generator, pd: PD, dtype, device) -> torch.Tensor:
     dtype = pd.dtype or dtype
     if pd.init == "zeros":
@@ -91,8 +98,9 @@ def stack_pds(tree, n: int):
 class ParamTree(nn.Module):
     """A nested dict of tensors held as parameters, read as ``p["a"]["b"]``.
 
-    Parameters are frozen (``requires_grad=False``): the port serves and
-    does not train yet."""
+    Parameters are registered frozen (``requires_grad=False``), as serving
+    wants them; training makes them trainable with the stock
+    ``model.requires_grad_(True)``."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()

@@ -4,10 +4,11 @@ Port of ``repro/models/model.py`` on one device.  Where the reference scans
 over stacked groups of layers, ``LM`` holds one parameter module per layer in
 an ``nn.ModuleList`` and runs them in order.  Public API::
 
-    model  = build_model(cfg, ax)                 # structure only
+    model  = build_model(cfg, ax, remat="none")   # structure only
     pds    = model.pds()                          # param descriptors
     model.load_params(init_tree(gen, pds, dtype, device))
     loss, metrics = model.loss(batch)
+    model.requires_grad_(True); loss.backward()   # training (frozen by default)
     logits, cache = model.prefill(batch)
     logits, cache = model.decode(cache, tokens, pos)
 
@@ -15,14 +16,26 @@ A parameter tree is ``{"embed", "final_norm", "layers": (one dict per
 layer, ...), "head"}`` (no ``head`` with tied embeddings); ``convert.py``
 maps the reference's stacked ``groups``/``tail`` layout onto it.  Caches are
 ``{"layers": (one dict per layer, ...)}`` with the batch on axis 0.
+
+``remat`` mirrors the reference's rematerialisation of each scanned group
+(one period of ``block_pattern``; the layers past the last whole period run
+plain): ``"full"`` recomputes a group's forward in backward
+(``torch.utils.checkpoint``); ``"dots"`` keeps the outputs of the products
+with no batch dimensions and recomputes the rest, as JAX's
+``dots_with_no_batch_dims_saveable``.  It changes memory, never values.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
@@ -31,16 +44,36 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.transformer import AUX_KEYS
 
+REMAT = ("none", "full", "dots")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Keep products with no batch dimensions: ``mm``, and ``bmm`` over a
+    batch of one, which is what ``einsum`` lowers a projection to.
+    Attention's and the experts' batched products are recomputed."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+
 
 class LM(nn.Module):
     """Decoder-only LM covering dense / moe / ssm / hybrid / vlm families."""
 
     def __init__(self, cfg: ModelConfig, ax: AxisRules = NO_RULES,
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None, *,
+                 remat: str = "none"):
         super().__init__()
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         self.cfg = cfg
         self.ax = ax
+        self.remat = remat
         self.kinds = cfg.pattern
+        self.period = len(cfg.block_pattern)
         self.layers = nn.ModuleList()
         if params is not None:
             self.load_params(params)
@@ -68,6 +101,20 @@ class LM(nn.Module):
                 setattr(self, name, nn.Parameter(tree[name], requires_grad=False))
         self.layers = nn.ModuleList(ParamTree(t) for t in tree["layers"])
 
+    def param_tree(self) -> Dict[str, Any]:
+        """The parameters this module holds, in the layout of ``pds()``."""
+        def tree(mod):
+            out = {n: p for n, p in mod._parameters.items()}
+            out.update((n, tree(m)) for n, m in mod._modules.items())
+            return out
+
+        out = {n: getattr(self, n) for n in ("embed", "final_norm")
+               if n in self._parameters}
+        out["layers"] = tuple(tree(p) for p in self.layers)
+        if "head" in self._parameters:
+            out["head"] = self.head
+        return out
+
     # --------------------------------------------------------- embeddings --
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         x = self.embed[ids.long()]
@@ -89,14 +136,32 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- stacks --
     def _run_train(self, x, *, causal=True, train=True, memory=None):
-        aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
-               for k in AUX_KEYS}
-        for kind, p in zip(self.kinds, self.layers):
-            x, a = tfm.block_train(self.cfg, kind, p, x, self.ax, causal=causal,
-                                   train=train, memory=memory)
-            aux = {k: aux[k] + a[k] for k in AUX_KEYS}
+        def group(x, kinds, layers):
+            aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+                   for k in AUX_KEYS}
+            for kind, p in zip(kinds, layers):
+                x, a = tfm.block_train(self.cfg, kind, p, x, self.ax,
+                                       causal=causal, train=train, memory=memory)
+                aux = {k: aux[k] + a[k] for k in AUX_KEYS}
+            return x, aux
+
+        run = group
+        if self.remat != "none" and train and torch.is_grad_enabled():
+            run = functools.partial(
+                checkpoint, group, use_reentrant=False,
+                context_fn=_DOTS_CONTEXT if self.remat == "dots" else noop_context_fn)
+
+        total = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+                 for k in AUX_KEYS}
+        for g0 in range(0, len(self.kinds), self.period):
+            g1 = min(g0 + self.period, len(self.kinds))
+            # a whole period is one of the reference's scanned groups; the
+            # tail past the last one runs plain
+            fn = run if g1 - g0 == self.period else group
+            x, aux = fn(x, self.kinds[g0:g1], self.layers[g0:g1])
+            total = {k: total[k] + aux[k] for k in AUX_KEYS}
         n = max(self.cfg.num_layers, 1)
-        return x, {k: v / n for k, v in aux.items()}
+        return x, {k: v / n for k, v in total.items()}
 
     def _run_prefill(self, x, *, cache_len: int, memory=None):
         caches = []
@@ -148,14 +213,15 @@ class EncDec(nn.Module):
     """Encoder-decoder (seamless).  Same step API as LM."""
 
     def __init__(self, cfg: ModelConfig, ax: AxisRules = NO_RULES,
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None, *,
+                 remat: str = "none"):
         super().__init__()
         self.cfg = cfg
         self.ax = ax
         enc_cfg = dataclasses.replace(cfg, cross_attention=False,
                                       num_layers=cfg.encoder_layers)
-        self.encoder = LM(enc_cfg, ax)
-        self.decoder = LM(cfg, ax)
+        self.encoder = LM(enc_cfg, ax, remat=remat)
+        self.decoder = LM(cfg, ax, remat=remat)
         if params is not None:
             self.load_params(params)
 
@@ -171,6 +237,11 @@ class EncDec(nn.Module):
         self.encoder.load_params({"layers": tree["enc"]["layers"]})
         self.enc_norm = nn.Parameter(tree["enc"]["norm"], requires_grad=False)
         self.decoder.load_params(tree["dec"])
+
+    def param_tree(self) -> Dict[str, Any]:
+        return {"enc": {"layers": self.encoder.param_tree()["layers"],
+                        "norm": self.enc_norm},
+                "dec": self.decoder.param_tree()}
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         x = frames.to(self.decoder.embed.dtype)
@@ -207,7 +278,8 @@ class EncDec(nn.Module):
         return self.decoder.cache_pds(batch, seq, memory_len or 4096)
 
 
-def build_model(cfg: ModelConfig, ax: AxisRules = NO_RULES, params=None):
+def build_model(cfg: ModelConfig, ax: AxisRules = NO_RULES, params=None, *,
+                remat: str = "none"):
     if cfg.encoder_layers:
-        return EncDec(cfg, ax, params)
-    return LM(cfg, ax, params)
+        return EncDec(cfg, ax, params, remat=remat)
+    return LM(cfg, ax, params, remat=remat)

@@ -363,3 +363,49 @@ def test_wrappers_never_synchronise(cuda):
                                        return_state=True, out_dtype=torch.float32)
     np.testing.assert_allclose(yw.cpu().numpy(), want_y.cpu().numpy(), **WKV_TOL["bf16"])
     np.testing.assert_allclose(s.cpu().numpy(), want_s.cpu().numpy(), **WKV_TOL["bf16"])
+
+
+def grad_cases(cuda):
+    """Each wrapper with small f32 inputs on the card, beside its plain
+    version: (call, inputs that may require grad)."""
+    gs = torch.tensor([5, 0], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([9, 4], dtype=torch.int32, device=cuda)
+    q, kv = arr(1, 12, 4, 128), arr(1, 12, 2, 128)
+    return {
+        "flash_attention": (lambda q, k, v: ops.flash_attention(q, k, v),
+                            lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=True),
+                            [from_numpy(a, cuda) for a in (q, kv, kv)]),
+        "decode_attention": (lambda q, k, v: ops.decode_attention(q, k, v, lens),
+                             lambda q, k, v: ref.decode_attention_ref(q, k, v, lens),
+                             [from_numpy(a, cuda) for a in (arr(2, 4, 128),
+                                                            arr(2, 16, 2, 128),
+                                                            arr(2, 16, 2, 128))]),
+        "grouped_gemm": (lambda x, w: ops.grouped_gemm(x, w, gs),
+                         lambda x, w: ref.grouped_gemm_ref(x, w, gs),
+                         [from_numpy(a, cuda) for a in (arr(2, 8, 16), arr(2, 16, 8))]),
+        "wkv_chunked": (lambda *t: ops.wkv_chunked(*t, chunk=8),
+                        lambda *t: ref.wkv_ref(*t),
+                        [from_numpy(a, cuda) for a in wkv_inputs(1, 16, 2, 16)]),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "grouped_gemm", "wkv_chunked"])
+def test_wrappers_refuse_inputs_that_require_grad(cuda, name):
+    """No kernel has a backward: with grad enabled, an input that requires
+    grad raises instead of giving a result detached from the graph; under
+    ``torch.no_grad()`` the same call launches and equals the plain version."""
+    call, plain, inputs = grad_cases(cuda)[name]
+    before = ops.launch_counts()[name]
+    for i in range(len(inputs)):
+        args = [t.clone().requires_grad_(j == i) for j, t in enumerate(inputs)]
+        with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no backward"):
+            call(*args)
+    assert ops.launch_counts()[name] == before
+    args = [t.clone().requires_grad_(True) for t in inputs]
+    with torch.no_grad():
+        got = call(*args)
+    assert ops.launch_counts()[name] == before + 1
+    np.testing.assert_allclose(
+        got.cpu().numpy(), plain(*inputs).cpu().numpy(),
+        **(WKV_TOL["f32"] if name == "wkv_chunked" else tol("f32")))

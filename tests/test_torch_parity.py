@@ -1,9 +1,11 @@
 """Helpers shared by the port's model parity tests (this file holds no tests
 of its own): the reference's weights carried across by ``convert``, the
-reference smoke test's batches as numpy, and the whole-model check (loss and
+reference smoke test's batches as numpy, the whole-model check (loss and
 metrics, prefill logits, prefill + teacher-forced decode) of
-``tests/test_torch_models*.py``."""
+``tests/test_torch_models*.py``, and the gradient helpers of
+``tests/test_torch_training*.py``."""
 import functools
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,7 @@ from repro.models import init_tree as ref_init_tree
 from repro_torch.configs import get_config
 from repro_torch.convert import from_numpy, lm_params_from_reference
 from repro_torch.models import AxisRules, build_model
+from repro_torch.models.common import tree_leaves, tree_map
 
 B = 2
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -112,3 +115,72 @@ def check_model_matches_reference(arch, options):
         np.testing.assert_allclose(f32(got), f32(want), **TOL)
         np.testing.assert_allclose(f32(got[:, 0]), f32(got_full[:, t + off]),
                                    **DECODE_TOL)
+
+
+# ------------------------------------------------------------- gradients --
+def leaf_paths(tree, prefix=""):
+    """(``/a/0/b``, leaf) over nested dicts, tuples and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_paths(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def leaf_errors(got_tree, want_tree):
+    """{leaf: (max|got - want|, max|want|)} over matching leaves."""
+    want = dict(leaf_paths(want_tree))
+    got = dict(leaf_paths(got_tree))
+    assert set(got) == set(want)
+    return {path: (float(np.abs(f32(got[path]) - f32(w)).max()),
+                   float(np.abs(f32(w)).max())) for path, w in want.items()}
+
+
+def assert_grads_close(got_tree, want_tree, spread=None):
+    """Every leaf within 2e-5 of that leaf's largest reference gradient.
+
+    ``spread``, where given, is the reference's own f32 spread at each leaf
+    (the distance between its gradients through two implementations of the
+    same function).  A leaf past 2e-5 then passes only within twice that
+    spread, and is named in a warning."""
+    bad, shown = [], []
+    for path, (err, scale) in leaf_errors(got_tree, want_tree).items():
+        if err <= TOL["atol"] * scale:
+            continue
+        line = f"{path}: max|dg| {err:.3e}, max|g| {scale:.3e}"
+        if spread is not None and err <= 2 * spread[path]:
+            shown.append(f"{line}, reference's own spread {spread[path]:.3e}")
+        else:
+            bad.append(line)
+    assert not bad, "\n".join(bad)
+    if shown:
+        warnings.warn("gradients past 2e-5 at the reference's own rounding "
+                      "spread:\n" + "\n".join(shown))
+
+
+def port_grads(model, batch):
+    """(loss, metrics, gradient tree in the layout of ``model.pds()``)."""
+    model.requires_grad_(True)
+    for p in tree_leaves(model.param_tree()):
+        p.grad = None
+    loss, metrics = model.loss(batch)
+    loss.backward()
+    return loss, metrics, tree_map(lambda p: p.grad, model.param_tree())
+
+
+def ref_grads(rmodel, rparams, batch):
+    """(loss, metrics, gradient tree) of the reference on numpy ``batch``."""
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (loss, metrics), g = jax.jit(jax.value_and_grad(rmodel.loss, has_aux=True))(
+        rparams, jb)
+    return loss, metrics, g
+
+
+def as_port_tree(cfg, ref_tree):
+    """A tree in the reference's layout (parameters, or their gradients) in
+    the port's, as ``convert`` carries parameters across."""
+    return lm_params_from_reference(
+        cfg, jax.tree_util.tree_map(np.asarray, ref_tree), "cpu")
