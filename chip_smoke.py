@@ -13,8 +13,9 @@ of qwen2-7b and mixtral-8x7b to ``MiniEngine``'s measured throughput (the
 paper's Table 2, ``repro_torch.launch.serve``), serve rwkv6-1.6b at full
 width through ``MiniEngine``, whose prefill runs the chunked WKV6 kernel in
 every layer, and train yi-9b at full width (``repro_torch.launch.train``, a
-path that launches no kernel: none has a backward).  Phases, one JSON line
-each (``simulate``, ``table2`` one per run or cell and one for the phase):
+path that launches no kernel: none has a backward), and run the sharded
+path at full width in a threaded world of ranks on the one card.  Phases,
+one JSON line each (``simulate``, ``table2`` one per run or cell and one for the phase):
 
 1. ``env``        the card as ``nvidia-smi`` names it, torch and CUDA versions
 2. ``build``      compiles ``src/repro_torch/kernels/csrc/*.cu``
@@ -96,12 +97,29 @@ each (``simulate``, ``table2`` one per run or cell and one for the phase):
                   checkpoint, then 10 resumed steps: the last loss within
                   2e-4 of a straight 20-step run (tests/test_training.py's
                   gate)
+11. ``shard``     the sharded path, every rank a thread of this process on
+                  the one card (torch's ``threaded`` backend; two NCCL ranks
+                  on one card fail, which ``nccl_probe`` records first),
+                  each run held to the same model unsharded on the card in
+                  f32: (a) mixtral-8x7b at full width, 2 layers, mesh
+                  (2, 4): ``LM.prefill`` logits of 4 x 512 tokens under
+                  ``moe_dispatch`` psum and a2a within 1e-4 of the largest,
+                  no token dropped; (b) yi-9b at full width, 2 layers,
+                  (2, 4): one ZeRO-1 AdamW step of 4 x 512 tokens, the loss
+                  within 1e-5 relative, gradients within 1e-4 of each
+                  leaf's largest, the sharded AdamW on the unsharded
+                  gradients within 1e-5, the world's peak memory; (c)
+                  rwkv6-1.6b at full width, 4 layers, (1, 4): a chunked
+                  prefill of 2048 tokens, the WKV6 kernel launched once per
+                  rank per layer on 8 of the 32 heads, logits and states
+                  within 1e-4; (d) yi-9b saved on (8,) and restored onto
+                  (2, 4), every leaf byte-equal
 
 Any failing phase makes the exit code non-zero.  There is no CPU path: without
 a CUDA device the script fails.  The line before the card's name lists every
 kernel with its launches on its path (``calibrate`` for the three it prices,
-``serve`` for ``wkv_chunked``), error, time, plain version's time, roofline
-bound and a library call's time; the last line is the verdict.
+``serve`` and ``shard`` for ``wkv_chunked``), error, time, plain version's
+time, roofline bound and a library call's time; the last line is the verdict.
 """
 from __future__ import annotations
 
@@ -1601,6 +1619,440 @@ def phase_train(card: str) -> None:
     stop_if_failed("train")
 
 
+# ------------------------------------------------------------------- shard --
+# Phase ``shard``: the sharded path, every rank of a mesh a thread of this
+# process on the one card (torch's ``threaded`` backend: collectives are
+# copies between the ranks' tensors).  Each run is held to the same model run
+# unsharded on the card, in f32 with TF32 off.  The ranks' local work and
+# shards are real; their communication is not, and no time from it stands for
+# a multi-card deployment.
+SHARD_MOE = dict(arch="mixtral-8x7b", layers=2, mesh=(2, 4), batch=4, seq=512)
+SHARD_TRAIN = dict(arch="yi-9b", layers=2, mesh=(2, 4), batch=4, seq=512)
+SHARD_RWKV = dict(arch="rwkv6-1.6b", layers=4, mesh=(1, 4), seq=2048,
+                  options={"rwkv_impl": "chunked", "rwkv_chunk": 16})
+SHARD_RESHARD = dict(arch="yi-9b", layers=2, mesh_from=(8,), mesh_to=(2, 4))
+TOL_SHARD_REL = 1e-4          # logits, states, gradients: of the largest
+TOL_SHARD_LOSS_REL = 1e-5
+TOL_SHARD_UPDATE = 1e-5       # ZeRO-1 AdamW given the unsharded gradients
+
+
+def axes_of(shape) -> tuple:
+    return ("data", "model")[-len(shape):]
+
+
+def threaded_world(world: int, fn, device) -> list:
+    """``fn(rank)`` on ``world`` threads, each one rank of a torch.distributed
+    world on the ``threaded`` backend (torch's in-process test backend), all
+    on ``device``.  Returns the ranks' results in rank order; a rank's
+    exception wakes the others' collectives and is raised here.
+
+    The ranks' process groups are not destroyed one by one (torch 2.11's
+    ``destroy_process_group`` reads a field its threaded world lacks): the
+    threads' worlds end with them, and the backend's shared state is reset."""
+    import threading
+    import traceback
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.multi_threaded_pg import (
+        ProcessLocalGroup, _install_threaded_pg, _uninstall_threaded_pg)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    out, errors = [None] * world, []
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    _install_threaded_pg()
+    store = dist.HashStore()
+
+    def run(rank):
+        try:
+            dist.init_process_group("threaded", rank=rank, world_size=world,
+                                    store=store)
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            out[rank] = fn(rank)
+        except BaseException as e:          # re-raised below, in this thread
+            errors.append((rank, traceback.format_exc()))
+            ProcessLocalGroup.exception_handle(e)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        ProcessLocalGroup.reset()
+        _uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    if errors:
+        rank, tb = min(errors)
+        raise RuntimeError(f"rank {rank} of the threaded world failed:\n{tb}")
+    return out
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _rel(got, want) -> float:
+    scale = float(want.abs().max())
+    return float((got.float() - want.float()).abs().max()) / (scale or 1.0)
+
+
+def _shard_err(got, want, scale: float, past: float = TOL_SHARD_REL) -> tuple:
+    """(max |got - want| / scale, entries more than ``past * scale`` apart)
+    for a DTensor ``got`` and the same tensor whole on every rank: each rank
+    compares its own shard with ``want``'s matching slice, so no rank
+    gathers a full leaf; maxima and counts meet by all-reduces, and a
+    replicated shard's entries count once."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    mesh = got.device_mesh
+    pl = tuple(Replicate() if p.is_partial() else p for p in got.placements)
+    d = got.redistribute(mesh, pl).to_local().float()
+    d = d.sub_(distribute_tensor(want, mesh, pl, src_data_rank=None).to_local()).abs_()
+    first = all(mesh.get_local_rank(i) == 0 for i, p in enumerate(pl)
+                if p.is_replicate())
+    worst = d.max().reshape(1)
+    count = ((d > past * scale).sum() * int(first)).reshape(1).to(torch.float64)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    dist.all_reduce(count)
+    return float(worst) / scale, int(count)
+
+
+def _init(cfg, device, seed=0):
+    pds = build_model(cfg).pds()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return pds, init_tree(gen, pds, torch.float32, device)
+
+
+def shard_moe(cfg, mesh_shape, batch: int, seq: int, device) -> dict:
+    """(a) ``LM.prefill`` logits of an MoE config on a mesh, under
+    ``moe_dispatch`` "psum" and "a2a", against the unsharded prefill, with
+    ``capacity_factor_eval = E / k``, which drops no token on any path (each
+    expert's capacity is every token of its shard); each path's
+    ``moe_drop_frac`` (from the blocks' aux at eval capacity) must be 0."""
+    from repro_torch.convert import shard_params
+    from repro_torch.launch.lowering import place_batch
+    from repro_torch.launch.mesh import make_mesh
+    moe = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor_eval=moe.num_experts / moe.top_k))
+    device = torch.device(device)
+    pds, params = _init(cfg, device)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+
+    def drop_frac(model, b):
+        return float(_full(model._run_train(model._inputs_to_x(b), train=False)[1]
+                           ["moe_drop_frac"]))
+
+    with torch.no_grad():
+        model = build_model(cfg, params=params)
+        want = model.prefill({"tokens": tokens}, all_logits=True)[0]
+        drops = {"unsharded": drop_frac(model, {"tokens": tokens})}
+        del model
+
+    def rank_fn(rank):
+        mesh = make_mesh(mesh_shape, axes_of(mesh_shape), device.type)
+        out = {}
+        with torch.no_grad():
+            sharded = shard_params(params, pds, AxisRules(mesh))
+            for dispatch in ("psum", "a2a"):
+                ax = AxisRules(mesh, {"moe_dispatch": dispatch})
+                model = build_model(cfg, ax, params=sharded)
+                b = place_batch(ax, {"tokens": tokens})
+                got = _full(model.prefill(b, all_logits=True)[0])
+                out[dispatch] = {"logits_rel": _rel(got, want),
+                                 "moe_drop_frac": drop_frac(model, b)}
+        return out
+
+    per_rank = threaded_world(math.prod(mesh_shape), rank_fn, device)
+    res = per_rank[0]
+    failures = [f"{d}: logits {r['logits_rel']:.3e} of the largest from the "
+                f"unsharded prefill's" for d, r in res.items()
+                if not r["logits_rel"] <= TOL_SHARD_REL]
+    failures += [f"{k}: moe_drop_frac {v}" for k, v in
+                 [("unsharded", drops["unsharded"])]
+                 + [(d, r["moe_drop_frac"]) for d, r in res.items()] if v != 0.0]
+    return {"arch": cfg.name, "layers": cfg.num_layers, "mesh": list(mesh_shape),
+            "batch": batch, "seq": seq, "tol_rel": TOL_SHARD_REL,
+            "capacity_factor_eval": cfg.moe.capacity_factor_eval,
+            "unsharded_moe_drop_frac": drops["unsharded"], **res,
+            "failures": failures}
+
+
+def shard_train(cfg, mesh_shape, batch: int, seq: int, device) -> dict:
+    """(b) one ZeRO-1 AdamW step of ``cfg`` on a mesh against the same step
+    unsharded: the loss within 1e-5 relative, each leaf's gradient within
+    1e-4 of its largest, and the sharded AdamW handed the unsharded
+    gradients within 1e-5 of the unsharded parameters.
+
+    The parameters after the two whole steps are read, not gated: Adam's
+    first step is ``lr * g / (|g| + eps)``, and where a sum cancels to a
+    gradient near ``eps`` the rounding of the sharded sums (held at 1e-4
+    above) moves it by up to ``lr``.  Their worst distance and the entries
+    past 1e-4 of their leaf's largest are printed.  Errors are taken shard
+    by shard (``_shard_err``)."""
+    from repro_torch.convert import place, shard_params
+    from repro_torch.launch.lowering import place_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import tree_map_with
+    device = torch.device(device)
+    pds, params = _init(cfg, device)
+    data = {k: torch.from_numpy(v).to(device) for k, v in
+            SyntheticLM(DataConfig(cfg.vocab_size, seq, batch)).batch(0).items()}
+    names = list(ckpt.flatten(params))
+
+    def step(model, p, opt, b):
+        """(loss, gradient tree, updated parameter tree, AdamW state)."""
+        model.requires_grad_(True)
+        p, st, metrics = make_train_step(model, opt)(p, opt.init(p, pds), b)
+        return (float(_full(metrics["loss"])),
+                tree_map(lambda x: x.grad, model.param_tree()), p, st)
+
+    copy = tree_map(torch.clone, params)
+    loss0, grads0, after0, _ = step(build_model(cfg, params=copy), copy,
+                                    AdamW(AdamWConfig(zero1=False), AxisRules(None)),
+                                    data)
+    grads0 = tree_map(lambda g: g.detach(), grads0)
+    g_scale, p_scale = ([float(t.abs().max()) or 1.0 for t in tree_leaves(tree)]
+                        for tree in (grads0, after0))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def local_bytes(tree):
+        return sum(t.to_local().numel() * t.element_size() for t in tree_leaves(tree))
+
+    def rank_fn(rank):
+        mesh = make_mesh(mesh_shape, axes_of(mesh_shape), device.type)
+        ax = AxisRules(mesh)
+        opt = AdamW(AdamWConfig(zero1=True), ax)
+
+        def whole_step():
+            p = shard_params(params, pds, ax)
+            loss, grads, after, st = step(build_model(cfg, ax, params=p), p, opt,
+                                          place_batch(ax, data))
+            held = 2 * local_bytes(p) + local_bytes(st["m"]) + local_bytes(st["v"])
+            errs = {"grad": [_shard_err(g, g0, s)[0] for g, g0, s in
+                             zip(tree_leaves(grads), tree_leaves(grads0), g_scale)]}
+            after = [_shard_err(a.detach(), b, s)
+                     for a, b, s in zip(tree_leaves(after), tree_leaves(after0), p_scale)]
+            errs["after"] = [e for e, _ in after]
+            errs["past"] = sum(n for _, n in after)
+            return loss, errs, held
+
+        def given_grads():
+            p = shard_params(params, pds, ax)
+            g = tree_map_with(lambda x, g0: place(g0, mesh, x.placements), p, grads0)
+            p, _ = opt.update(p, g, opt.init(p, pds))
+            return [_shard_err(a, b, 1.0)[0]
+                    for a, b in zip(tree_leaves(p), tree_leaves(after0))]
+
+        loss, errs, held = whole_step()
+        gc.collect()            # the step's tensors, before the second part
+        return {"loss": loss, **errs, "given": given_grads(), "bytes": held}
+
+    per_rank = threaded_world(math.prod(mesh_shape), rank_fn, device)
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    r0 = per_rank[0]
+    g_err, u_err, p_err = (max(zip(r0[k], names)) for k in ("grad", "given", "after"))
+    loss_rel = abs(r0["loss"] - loss0) / abs(loss0)
+    failures = []
+    if not loss_rel <= TOL_SHARD_LOSS_REL:
+        failures.append(f"loss {r0['loss']!r} against {loss0!r}")
+    if not g_err[0] <= TOL_SHARD_REL:
+        failures.append(f"gradient of {g_err[1]} {g_err[0]:.3e} of its largest")
+    if not u_err[0] <= TOL_SHARD_UPDATE:
+        failures.append(f"ZeRO-1 AdamW on the unsharded gradients puts "
+                        f"{u_err[1]} {u_err[0]:.3e} away")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "mesh": list(mesh_shape),
+            "batch": batch, "seq": seq, "zero1": True,
+            "loss": {"sharded": r0["loss"], "unsharded": loss0, "rel": loss_rel},
+            "grad_rel": {"leaf": g_err[1], "err": g_err[0]},
+            "adamw_given_unsharded_grads_abs": {"leaf": u_err[1], "err": u_err[0]},
+            "params_after_step_rel": {"leaf": p_err[1], "err": p_err[0],
+                                      "entries_past_1e-4": r0["past"],
+                                      "entries": sum(t.numel() for t in tree_leaves(after0))},
+            "rank_gb_params_grads_moments": [r["bytes"] / 1e9 for r in per_rank],
+            "world_peak_gb_threaded_one_card": None if peak is None else peak / 1e9,
+            "failures": failures}
+
+
+def shard_rwkv(cfg, mesh_shape, seq: int, options: dict, device) -> dict:
+    """(c) a chunked prefill of one ``seq``-token prompt on a mesh against the
+    unsharded chunked prefill: the last logits and every layer's final state
+    within 1e-4 of their largest.  On a CUDA device the WKV6 kernel must be
+    launched once per rank per layer, each rank on its own heads."""
+    from repro_torch.convert import shard_params
+    from repro_torch.launch.lowering import place_batch
+    from repro_torch.launch.mesh import make_mesh
+    device = torch.device(device)
+    pds, params = _init(cfg, device)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    with torch.no_grad():
+        want, cache = build_model(cfg, AxisRules(None, options),
+                                  params=params).prefill({"tokens": tokens})
+    states = [c["state"] for c in cache["layers"]]
+    world = math.prod(mesh_shape)
+    ops.reset_launch_counts()
+
+    def rank_fn(rank):
+        ax = AxisRules(make_mesh(mesh_shape, axes_of(mesh_shape), device.type),
+                       options)
+        with torch.no_grad():
+            model = build_model(cfg, ax, params=shard_params(params, pds, ax))
+            got, cache = model.prefill(place_batch(ax, {"tokens": tokens}))
+            layers = cache["layers"]
+            return {"logits_rel": _rel(_full(got), want),
+                    "state_rel": max(_rel(_full(c["state"]), w)
+                                     for c, w in zip(layers, states)),
+                    "local_heads": layers[0]["state"].to_local().shape[1]}
+
+    res = threaded_world(world, rank_fn, device)
+    launches = ops.launch_counts()["wkv_chunked"]
+    heads = cfg.d_model // cfg.rwkv_head_size
+    failures = [f"{k} {res[0][k]:.3e} of the largest from the unsharded prefill's"
+                for k in ("logits_rel", "state_rel") if not res[0][k] <= TOL_SHARD_REL]
+    want_launches = world * cfg.num_layers if device.type == "cuda" else 0
+    if launches != want_launches:
+        failures.append(f"wkv_chunked launched {launches} times, not "
+                        f"{want_launches} (once per rank per layer)")
+    per_rank_heads = [r["local_heads"] for r in res]
+    if per_rank_heads != [heads // mesh_shape[-1]] * world:
+        failures.append(f"ranks held {per_rank_heads} heads each of {heads}")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "mesh": list(mesh_shape),
+            "seq": seq, "options": options, "heads": heads,
+            "heads_per_rank": per_rank_heads, "wkv_launches": launches,
+            "logits_rel": res[0]["logits_rel"], "state_rel": res[0]["state_rel"],
+            "tol_rel": TOL_SHARD_REL, "failures": failures}
+
+
+def shard_reshard(cfg, mesh_from, mesh_to, device, out_dir: str) -> dict:
+    """(d) save ``cfg``'s parameters sharded on ``mesh_from`` and restore them
+    onto ``mesh_to`` (the reference's elastic-resharding test): every leaf
+    byte-equal to the original, on the target mesh's placements."""
+    from repro_torch.convert import shard_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import shape_tree, tree_map_with
+    device = torch.device(device)
+    pds, params = _init(cfg, device)
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def rank_fn(rank):
+        ax_a = AxisRules(make_mesh(mesh_from, axes_of(mesh_from), device.type))
+        t0 = time.perf_counter()
+        ckpt.save(out_dir, params=shard_params(params, pds, ax_a), step=5)
+        save_s = time.perf_counter() - t0
+        mesh_b = make_mesh(mesh_to, axes_of(mesh_to), device.type)
+        ax_b = AxisRules(mesh_b)
+        placed = ax_b.placement_tree(pds)
+        t0 = time.perf_counter()
+        got, _, step, _ = ckpt.restore(out_dir, params_like=shape_tree(pds, torch.float32),
+                                       shardings=placed, mesh=mesh_b)
+        restore_s = time.perf_counter() - t0
+        equal = [bool(torch.equal(_full(g), w))
+                 for g, w in zip(tree_leaves(got), tree_leaves(params))]
+        on_target = tree_leaves(tree_map_with(
+            lambda g, pl: g.placements == pl, got, placed))
+        return {"step": step, "equal": sum(equal), "on_target": sum(on_target),
+                "leaves": len(equal), "save_s": save_s, "restore_s": restore_s}
+
+    res = threaded_world(math.prod(mesh_to), rank_fn, device)[0]
+    failures = []
+    if res["step"] != 5 or not res["equal"] == res["on_target"] == res["leaves"]:
+        failures.append(f"restored step {res['step']}: of {res['leaves']} leaves "
+                        f"{res['equal']} byte-equal, {res['on_target']} on the "
+                        f"target mesh's placements")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "mesh_from": list(mesh_from),
+            "mesh_to": list(mesh_to), **res, "failures": failures}
+
+
+NCCL_PROBE = r"""
+import os, sys, torch, torch.distributed as dist
+rank = int(sys.argv[1])
+dist.init_process_group("nccl", init_method="tcp://localhost:" + sys.argv[2],
+                        rank=rank, world_size=2)
+t = torch.ones(1, device="cuda:0")
+try:
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print("ok", float(t))
+except Exception as e:
+    print(type(e).__name__ + ": " + str(e).splitlines()[0] if str(e) else type(e).__name__)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def nccl_probe() -> dict:
+    """Two NCCL ranks on the one card (cuda:0 each), one all-reduce: the
+    reason the sharded path runs as a threaded world here.  No gate."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ, NCCL_DEBUG="WARN")
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_PROBE, str(r), port],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env) for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=90)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs.append(p.communicate()[0] + "\n(killed after 90 s)")
+    lines = [[ln.strip() for ln in o.splitlines() if ln.strip()] for o in outs]
+    return {"ranks": 2, "device": "cuda:0", "exit_codes": [p.returncode for p in procs],
+            "nccl_warnings": [[ln for ln in lns if "NCCL WARN" in ln][:3] for lns in lines],
+            "last_lines": [lns[-1:] for lns in lines]}
+
+
+def phase_shard(card: str) -> int:
+    import logging
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    t0 = time.perf_counter()
+    probe = nccl_probe()
+    say("shard", run="nccl_probe", **probe)
+
+    def full_width(spec):
+        return dataclasses.replace(get_config(spec["arch"]), num_layers=spec["layers"])
+
+    runs = {}
+    for name, fn in (
+            ("moe", lambda: shard_moe(full_width(SHARD_MOE), SHARD_MOE["mesh"],
+                                      SHARD_MOE["batch"], SHARD_MOE["seq"], "cuda")),
+            ("train", lambda: shard_train(full_width(SHARD_TRAIN), SHARD_TRAIN["mesh"],
+                                          SHARD_TRAIN["batch"], SHARD_TRAIN["seq"], "cuda")),
+            ("rwkv", lambda: shard_rwkv(full_width(SHARD_RWKV), SHARD_RWKV["mesh"],
+                                        SHARD_RWKV["seq"], SHARD_RWKV["options"], "cuda")),
+            ("reshard", lambda: shard_reshard(
+                full_width(SHARD_RESHARD), SHARD_RESHARD["mesh_from"],
+                SHARD_RESHARD["mesh_to"], "cuda",
+                os.path.join(ROOT, "build", "shard_ckpt")))):
+        t1 = time.perf_counter()
+        res = fn()
+        res["wall_s"] = time.perf_counter() - t1
+        for msg in res["failures"]:
+            fail(f"shard {name}: {msg}")
+        runs[name] = res
+        say("shard", run=name, world="threaded ranks on one card", **res)
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(ROOT, "build", "shard_ckpt"), ignore_errors=True)
+    say("shard", ok=not FAILURES, card=card,
+        world="threaded: every rank a thread on the one card; no time here "
+              "stands for a multi-card deployment",
+        wall_s=time.perf_counter() - t0,
+        runs={k: {"failures": v["failures"], "wall_s": v["wall_s"]}
+              for k, v in runs.items()})
+    stop_if_failed("shard")
+    return runs["rwkv"]["wkv_launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ptxas", action="store_true",
@@ -1624,6 +2076,7 @@ def main(argv=None) -> int:
     phase_table2([out_root, out2_root])
     counts["wkv_chunked"] = phase_serve()["wkv_chunked"]
     phase_train(card)
+    counts["wkv_chunked"] += phase_shard(card)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],

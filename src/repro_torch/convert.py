@@ -11,11 +11,12 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.calib.artifacts import CalibrationArtifact
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import build_model
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import AxisRules, tree_map, tree_map_with
 
 
 def from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
@@ -33,6 +34,30 @@ def from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
             t = t.to(dtype)
         return t
     return tree
+
+
+def shard_params(params: Any, pds: Any, ax: AxisRules) -> Any:
+    """Place a full tree on ``ax``'s mesh: each leaf ``distribute_tensor``-ed
+    by its descriptor's resolved spec (``ax.placement_tree``), the reference's
+    ``device_put(params, NamedSharding(mesh, spec))``.  ``params`` is a
+    per-layer tree (``lm_params_from_reference``'s or the port's own
+    ``init_tree``), the same on every rank; ``pds`` is ``model.pds()`` or an
+    optimizer's ``state_pds``.  The reference's stacked ``layers`` axis is
+    never sharded, so a layer's placements are those of its stacked spec
+    with the first entry dropped.  Without a mesh the tree is returned as it
+    is."""
+    if ax.mesh is None:
+        return params
+    return tree_map_with(lambda t, pl: place(t, ax.mesh, pl), params,
+                         ax.placement_tree(pds))
+
+
+def place(t: torch.Tensor, mesh, placements) -> DTensor:
+    """``distribute_tensor`` of a full tensor (the same on every rank) into
+    shards of this rank's own: a shard can be a view of ``t``, and ranks that
+    are threads of one process may share ``t``, so it is copied out."""
+    local = distribute_tensor(t, mesh, placements).to_local()
+    return DTensor.from_local(local.clone(), mesh, placements, run_check=False)
 
 
 #: oracle names that mean "the package's real kernels" on each side

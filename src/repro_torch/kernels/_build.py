@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import List, Optional
@@ -27,6 +28,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIB: Optional[ctypes.CDLL] = None
 #: seconds the last real build took (0.0 when the library was found built)
 last_build_s: float = 0.0
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``: ranks of a threaded world launch
+    from several threads, and ``+= 1`` is not atomic."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 class KernelBuildError(RuntimeError):

@@ -128,7 +128,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lens.data_ptr(), part_o, part_ml, code, B, T, H, K, hd, splits,
             span, strides, hd ** -0.5, stream)
     _build.check(err, "decode_attention")
-    decode_attention.launches += 1
+    _build.count_launch(decode_attention)
     return out
 
 

@@ -92,7 +92,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             B, S, T, H, K, hd, strides, hd ** -0.5, int(bool(causal)),
             int(window), stream)
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 

@@ -112,7 +112,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
             x.data_ptr(), w.data_ptr(), y.data_ptr(), gs.data_ptr(), code,
             E, C, din, dout, stream)
     _build.check(err, "grouped_gemm")
-    grouped_gemm.launches += 1
+    _build.count_launch(grouped_gemm)
     return y
 
 

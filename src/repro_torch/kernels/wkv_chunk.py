@@ -170,7 +170,7 @@ def wkv_chunked(r, k, v, w, u, *, chunk: int = 16,
             y.data_ptr(), state.data_ptr() if state is not None else None,
             *codes, B, T, H, hs, C, strides, stream)
     _build.check(err, "wkv_chunked")
-    wkv_chunked.launches += 1
+    _build.count_launch(wkv_chunked)
     return (y, state) if return_state else y
 
 

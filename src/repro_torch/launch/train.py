@@ -16,8 +16,13 @@ Parameters come from ``init_tree`` on a ``torch.Generator`` seeded with
 
 TF32 stays off for matmuls (torch's default; nothing here turns it on), so
 an f32 run on the card computes what the same run computes on the CPU, to
-rounding.  Multi-device meshes wait for the multi-device slice:
-``mesh_shape`` raises.
+rounding.
+
+``mesh_shape`` trains on a mesh named ("data", "model")[:len(mesh_shape)]
+over the process group the caller has initialised (one rank per mesh
+position, every rank calling ``run`` alike): parameters placed by
+``convert.shard_params``, ZeRO-1 moments, batches split over the batch axes,
+as the reference's trainer does under ``jax.set_mesh``.
 """
 from __future__ import annotations
 
@@ -26,9 +31,13 @@ import dataclasses
 import time
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import shard_params
+from repro_torch.launch.lowering import place_batch
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import AxisRules, build_model, init_tree
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.data import DataConfig, SyntheticLM
@@ -52,9 +61,6 @@ def run(arch: str = "yi-9b", *, smoke: bool = True, steps: int = 50,
     """Train; returns ``first_loss``, ``last_loss``, ``losses``, ``params``
     and ``opt_state`` as the reference does, and ``step_s``: each step's
     seconds, from the batch on the device to the loss on the host."""
-    if mesh_shape:
-        raise NotImplementedError("the port trains on one device; meshes "
-                                  "wait for the multi-device slice")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training runs on the card by default and found no "
@@ -67,16 +73,22 @@ def run(arch: str = "yi-9b", *, smoke: bool = True, steps: int = 50,
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
 
-    ax = AxisRules(None)
+    mesh = (make_mesh(mesh_shape, ("data", "model")[: len(mesh_shape)],
+                      device.type) if mesh_shape else None)
+    ax = AxisRules(mesh)
     model = build_model(cfg, ax, remat=remat)
-    opt = AdamW(AdamWConfig(lr=lr, zero1=False), ax)
+    pds = model.pds()
+    opt = AdamW(AdamWConfig(lr=lr, zero1=mesh is not None), ax)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = init_tree(gen, model.pds(), dtype, device)
-    opt_state = opt.init(params)
+    params = shard_params(init_tree(gen, pds, dtype, device), pds, ax)
+    opt_state = opt.init(params, pds)
     start_step = 0
     if resume and ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+        on_mesh = {} if mesh is None else {
+            "mesh": mesh, "shardings": ax.placement_tree(pds),
+            "opt_shardings": ax.placement_tree(opt.state_pds(pds))}
         params, opt_state, start_step, _ = ckpt.restore(
-            ckpt_dir, params_like=params, opt_like=opt_state)
+            ckpt_dir, params_like=params, opt_like=opt_state, **on_mesh)
         print(f"resumed from step {start_step}")
     model.load_params(params)
     model.requires_grad_(True)
@@ -90,9 +102,10 @@ def run(arch: str = "yi-9b", *, smoke: bool = True, steps: int = 50,
     for step in range(start_step, start_step + steps):
         batch = data.batch(step)
         t_step = time.perf_counter()
-        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        batch = place_batch(ax, {k: torch.from_numpy(v).to(device)
+                                 for k, v in batch.items()})
         params, opt_state, metrics = step_fn(params, opt_state, batch)
-        loss = float(metrics["loss"])
+        loss = float(_full(metrics["loss"]))
         step_s.append(time.perf_counter() - t_step)
         losses.append(loss)
         if step % log_every == 0 or step == start_step + steps - 1:
@@ -107,6 +120,10 @@ def run(arch: str = "yi-9b", *, smoke: bool = True, steps: int = 50,
     return {"first_loss": losses[0], "last_loss": losses[-1],
             "losses": losses, "params": params, "opt_state": opt_state,
             "step_s": step_s}
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def main(argv=None) -> None:

@@ -1,17 +1,24 @@
 """GQA attention: training/prefill (full-sequence) and decode (KV cache).
 
-Port of ``repro/models/attention.py`` on one device: GQA with any (H, K),
-qk_norm, attention-logit softcap, sliding-window attention with ring caches,
+Port of ``repro/models/attention.py``: GQA with any (H, K), qk_norm,
+attention-logit softcap, sliding-window attention with ring caches,
 cross-attention, bidirectional encoders.  These are the reference's plain
 paths (``_sdpa`` and the blockwise online softmax); the reference models never
 call the Pallas attention kernels, and neither does the port.
+
+TP mapping (megatron-style over the "model" mesh axis), as the reference's:
+train/prefill replicate KV heads ``rep = tp/gcd(K, tp)`` times so the q-head
+axis shards evenly (replicated attention when H itself does not divide);
+decode shards the KV cache over (batch -> data, seq -> model).
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -37,12 +44,46 @@ def attn_pds(cfg: ModelConfig, cross: bool = False) -> Dict[str, PD]:
     return p
 
 
+def _per_head(ax: AxisRules, fn, q, k, v, rows=None, *, q_axes, kv_axes):
+    """``fn(q, k, v[, rows])`` on each rank's batch rows and KV heads.
+
+    Attention mixes neither rows nor heads, so on a mesh the core runs under
+    ``local_map`` (as GSPMD partitions it): q/k/v on (batch -> data, KV heads
+    -> model when they divide), ``rows`` (a per-row (B, T) bias) on the batch
+    axes, the output as q.  DTensor propagation through the core's batched
+    products would flatten a batch and a head dim both sharded, which not
+    every torch version can do."""
+    args = (q, k, v) + (() if rows is None else (rows,))
+    if ax.mesh is None:
+        return fn(*args)
+
+    def pl(t, axes):
+        return ax.placements(ax.resolve(axes, t.shape))
+    q_pl = pl(q, q_axes)
+    in_pl = (q_pl, pl(k, kv_axes), pl(v, kv_axes))
+    if rows is not None:
+        in_pl += (pl(rows, ("batch",) + (None,) * (rows.ndim - 1)),)
+    return local_map(fn, out_placements=(q_pl,), in_placements=in_pl,
+                     redistribute_inputs=True)(*(ax.replicated(t) for t in args))
+
+
+def kv_replication(cfg: ModelConfig, ax: AxisRules) -> int:
+    """How many times KV heads are replicated for TP train/prefill."""
+    tp = ax.model_size()
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    if tp <= 1 or H % tp != 0:
+        return 1
+    rep = tp // math.gcd(K, tp)
+    return rep if (H // K) % rep == 0 else 1
+
+
 def _proj(x, w):
     """x (B,S,D) @ w (D,H,hd) -> (B,S,H,hd)."""
     return torch.einsum("bsd,dhk->bshk", x, w)
 
 
-def _project_qkv(cfg: ModelConfig, p, x, positions, rope: bool = True):
+def _project_qkv(cfg: ModelConfig, p, x, positions, ax: AxisRules,
+                 rope: bool = True):
     """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,K,hd) with qk_norm + RoPE."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qk_norm:
@@ -50,10 +91,11 @@ def _project_qkv(cfg: ModelConfig, p, x, positions, rope: bool = True):
         k = rms_norm(k, p["k_norm"], cfg.rms_eps, zero_centered=True)
     if rope:
         cos, sin = rope_freqs(positions, cfg.resolved_head_dim, cfg.rope_theta)
-        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+        cos = ax.replicated(cos[:, :, None, :])
+        sin = ax.replicated(sin[:, :, None, :])
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    return q, k, v
+    return ax.constrain(q, "batch", None, "heads", None), k, v
 
 
 def _valid(q_pos, k_pos, *, causal: bool, window: int) -> torch.Tensor:
@@ -136,11 +178,11 @@ def attention_train(cfg: ModelConfig, p, x, ax: AxisRules, *,
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     if memory is None:
-        q, k, v = _project_qkv(cfg, p, x, positions)
+        q, k, v = _project_qkv(cfg, p, x, positions, ax)
         k_pos = positions
     else:
         # cross-attention: q from x, k/v from encoder memory; no RoPE on q/k
-        q = _proj(x, p["wq"])
+        q = ax.constrain(_proj(x, p["wq"]), "batch", None, "heads", None)
         k, v = _proj(memory, p["wk"]), _proj(memory, p["wv"])
         Tm = memory.shape[1]
         k_pos = (memory_positions if memory_positions is not None
@@ -148,16 +190,35 @@ def attention_train(cfg: ModelConfig, p, x, ax: AxisRules, *,
         causal, window = False, 0
 
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = q.reshape(B, S, K, H // K, hd)
+    rep = kv_replication(cfg, ax)
+    if rep > 1:  # replicate KV heads across TP ranks
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    Kr = K * rep
+    kv_axis = "heads" if Kr % ax.model_size() == 0 else None
+    k = ax.constrain(k, "batch", None, kv_axis, None)
+    v = ax.constrain(v, "batch", None, kv_axis, None)
+    if Kr % ax.model_size():
+        # DTensor cannot split a head-sharded dim into (Kr, G) unless Kr
+        # divides over "model" (GSPMD reshards there on its own)
+        q = ax.constrain(q, "batch", None, None, None)
+    q = q.reshape(B, S, Kr, H // Kr, hd)
     if ax.opt("attn_impl", "naive") == "blockwise":
-        out = _sdpa_blockwise(cfg, q, k, v, positions[0], k_pos[0],
-                              causal=causal, window=window,
-                              block=int(ax.opt("attn_block", 1024)))
+        block = int(ax.opt("attn_block", 1024))
+
+        def core(q, k, v):
+            return _sdpa_blockwise(cfg, q, k, v, positions[0], k_pos[0],
+                                   causal=causal, window=window, block=block)
     else:
-        ok = _valid(positions[0], k_pos[0], causal=causal, window=window)
-        out = _sdpa(cfg, q, k, v, _bias(ok))
+        bias = _bias(_valid(positions[0], k_pos[0], causal=causal, window=window))
+
+        def core(q, k, v):
+            return _sdpa(cfg, q, k, v, bias)
+    out = _per_head(ax, core, q, k, v, q_axes=("batch", None, "heads", None, None),
+                    kv_axes=("batch", None, "heads", None))
     out = out.reshape(B, S, H, hd)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return ax.constrain(y, "batch", None, "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -189,21 +250,30 @@ def attention_decode(cfg: ModelConfig, p, x, cache: Dict[str, torch.Tensor],
 
     def attend(q, ck, cv, bias):
         # q (B,H,hd); ck/cv (B,T,K,hd); bias (T,) or per-row (B,T), f32
-        qg = q.reshape(B, K, H // K, hd)
-        s = torch.einsum("bkgd,btkd->bkgt", qg, ck).float() * scale
-        if cfg.attn_logit_softcap:
-            s = softcap(s, cfg.attn_logit_softcap)
-        s = s + (bias[:, None, None, :] if bias.ndim == 2
-                 else bias[None, None, None, :])
-        pr = torch.softmax(s, dim=-1).to(cv.dtype)
-        return torch.einsum("bkgt,btkd->bkgd", pr, cv).reshape(B, H, hd)
+        if K % ax.model_size():     # as in attention_train: heads whole
+            q = ax.constrain(q, "batch", None, None)
+
+        def core(qg, ck, cv, *rows):
+            s = torch.einsum("bkgd,btkd->bkgt", qg, ck).float() * scale
+            if cfg.attn_logit_softcap:
+                s = softcap(s, cfg.attn_logit_softcap)
+            s = s + (rows[0][:, None, None, :] if rows else bias[None, None, None, :])
+            pr = torch.softmax(s, dim=-1).to(cv.dtype)
+            return torch.einsum("bkgt,btkd->bkgd", pr, cv)
+
+        o = _per_head(ax, core, q.reshape(B, K, H // K, hd), ck, cv,
+                      bias if bias.ndim == 2 else None,
+                      q_axes=("batch", "heads", None, None),
+                      kv_axes=("batch", None, "heads", None))
+        return o.reshape(B, H, hd)
 
     if memory_kv is not None:  # cross-attention: cache is static memory KV
         q = _proj(x, p["wq"])[:, 0]
         ck, cv = memory_kv
         o = attend(q, ck, cv, torch.zeros((ck.shape[1],), dtype=torch.float32,
                                           device=x.device))
-        return torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None, :], cache
+        y = torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None, :]
+        return ax.constrain(y, "batch", None, "embed"), cache
 
     per_row = isinstance(pos, torch.Tensor) and pos.ndim == 1
     if per_row:
@@ -212,7 +282,7 @@ def attention_decode(cfg: ModelConfig, p, x, cache: Dict[str, torch.Tensor],
     else:
         pos = int(pos)
         pos_b = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _project_qkv(cfg, p, x, pos_b)
+    q, k_new, v_new = _project_qkv(cfg, p, x, pos_b, ax)
     q = q[:, 0]  # (B,H,hd)
 
     ck, cv = cache["k"], cache["v"]
@@ -221,17 +291,18 @@ def attention_decode(cfg: ModelConfig, p, x, cache: Dict[str, torch.Tensor],
     if per_row:
         slot = pos % Sc                                   # (B,)
         hit = (t[None, :] == slot[:, None])[..., None, None]
-        ck = torch.where(hit, k_new, ck)
-        cv = torch.where(hit, v_new, cv)
         valid = (t[None, :] <= pos[:, None]) | (pos[:, None] + 1 >= Sc)
     else:
         slot = pos % Sc  # ring semantics; Sc == full length when window == 0
-        ck, cv = ck.clone(), cv.clone()
-        ck[:, slot] = k_new[:, 0]
-        cv[:, slot] = v_new[:, 0]
+        hit = (t == slot)[None, :, None, None]
         # the ring is fully valid once pos+1 >= Sc; before that only the
         # first pos+1 slots hold real entries
         valid = (t <= pos) | (pos + 1 >= Sc)
+    # a select, not a write into the cache: the cache may be sharded on its
+    # sequence axis, and a new one is returned either way
+    hit = ax.replicated(hit)
+    ck = ax.constrain(torch.where(hit, k_new, ck), "batch", "kv_seq", None, None)
+    cv = ax.constrain(torch.where(hit, v_new, cv), "batch", "kv_seq", None, None)
     o = attend(q, ck, cv, _bias(valid))
     y = torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None, :]
-    return y, {"k": ck, "v": cv}
+    return ax.constrain(y, "batch", None, "embed"), {"k": ck, "v": cv}

@@ -1,23 +1,31 @@
-"""Common model machinery: parameter descriptors, init, norms, RoPE.
+"""Common model machinery: parameter descriptors, init, norms, RoPE, sharding.
 
 Parameters are declared as trees of :class:`PD` (shape, logical axis names,
 init scale).  ``init_tree`` materializes a tree of tensors from one explicit
 ``torch.Generator`` on an explicit device; ``ParamTree`` holds such a tree
 inside an ``nn.Module``, read as ``p["tm"]["wr"]`` like the reference's dicts.
 
-Single device only: ``AxisRules`` carries the execution options; its mesh and
-sharding half (the reference's ``resolve``/``spec_tree``/``constrain``) waits
-for the multi-device slice, so there is no ``constrain`` call anywhere in the
-port's models.
+``AxisRules`` maps logical axes onto a ``torch.distributed`` ``DeviceMesh``
+by the reference's rules.  ``resolve`` gives the reference's
+``PartitionSpec`` as a plain tuple (one entry per tensor dim: ``None``, a
+mesh axis name, or a tuple of names); ``placements`` turns such a spec into
+DTensor placements (one ``Shard``/``Replicate`` per mesh dim).  With a mesh
+the models run on DTensors: parameters placed by ``placement_tree`` (see
+``convert.shard_params``), activations propagated by DTensor and pinned by
+``constrain`` where the reference calls ``with_sharding_constraint``.
+Without one (``NO_RULES``) every call is a no-op and the models run on plain
+tensors.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 @dataclass(frozen=True)
@@ -45,6 +53,19 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_map_with(fn: Callable, tree: Any, *others: Any) -> Any:
+    """``fn(leaf, *other_leaves)`` over ``tree``'s structure, each of
+    ``others`` indexed alongside it; their leaves may be tuples (a spec, a
+    placement tuple), since only ``tree`` is walked."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with(fn, v, *(o[i] for o in others))
+                          for i, v in enumerate(tree))
+    return fn(tree, *others)
 
 
 def tree_leaves(tree: Any) -> list:
@@ -122,19 +143,181 @@ class ParamTree(nn.Module):
 
 
 class AxisRules:
-    """Execution options threaded to the layer implementations (perf levers):
+    """Resolves logical param/activation axes onto a mesh, and carries the
+    execution options threaded to the layer implementations (perf levers):
     ``attn_impl`` "naive" | "blockwise", ``attn_block``; ``rwkv_impl`` "scan" |
-    "chunked", ``rwkv_chunk``.  Single device: ``mesh`` must be None."""
+    "chunked", ``rwkv_chunk``; ``moe_dispatch`` "psum" | "a2a".
+
+    ``mesh`` is a ``DeviceMesh`` with ``mesh_dim_names`` (``launch/mesh.py``),
+    or None for one device.  ``batch_axes`` covers DP ("pod", "data");
+    ``model_axis`` covers TP/EP.  An axis maps to its mesh axis only when the
+    dimension is divisible by the mesh axis's size, otherwise it replicates
+    (recurrentgemma's 10 heads on a 16-way model axis)."""
 
     def __init__(self, mesh=None, options: Optional[Dict[str, Any]] = None):
-        if mesh is not None:
-            raise NotImplementedError("the port runs on one device; sharded "
-                                      "AxisRules are not ported yet")
-        self.mesh = None
+        self.mesh = mesh
+        if mesh is None:
+            self.axis_sizes: Dict[str, int] = {}
+        else:
+            self.axis_sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+        self.batch_axes: Tuple[str, ...] = tuple(
+            a for a in ("pod", "data") if a in self.axis_sizes)
+        self.model_axis: Optional[str] = "model" if "model" in self.axis_sizes else None
         self.options: Dict[str, Any] = dict(options or {})
 
     def opt(self, key: str, default: Any = None) -> Any:
         return self.options.get(key, default)
+
+    # -- helpers ----------------------------------------------------------
+    def batch(self, dim: int):
+        """Mesh mapping for a batch dimension of size `dim` (best effort)."""
+        axes = list(self.batch_axes)
+        while axes:
+            prod = 1
+            for a in axes:
+                prod *= self.axis_sizes[a]
+            if dim % prod == 0:
+                return tuple(axes) if len(axes) > 1 else axes[0]
+            axes.pop(0)  # drop "pod" first, then "data"
+        return None
+
+    def model(self, dim: int):
+        if self.model_axis and dim % self.axis_sizes[self.model_axis] == 0:
+            return self.model_axis
+        return None
+
+    def model_size(self) -> int:
+        return self.axis_sizes.get("model", 1)
+
+    # -- resolution --------------------------------------------------------
+    def resolve(self, axes: Sequence[Optional[str]], shape: Sequence[int]) -> tuple:
+        """Logical axes + concrete dims -> the reference's PartitionSpec, as a
+        tuple.
+
+        A mesh axis may appear at most once per spec: the first logical axis
+        that claims it wins, later claimants replicate (MoE expert weights
+        (E, d, ff): 'expert' takes "model" so 'mlp' replicates under EP; when
+        E is not divisible 'expert' falls back and 'mlp' takes "model", the
+        TP-over-d_ff layout ``moe_apply`` uses for mixtral)."""
+        out = []
+        used = set()
+        for a, d in zip(axes, shape):
+            m = None
+            if a in ("vocab", "heads", "kv", "mlp", "expert", "kv_seq"):
+                m = self.model(d)
+            elif a == "batch":
+                m = self.batch(d)
+            elif a == "zero":  # ZeRO-1 optimizer-state sharding over data
+                ds = self.axis_sizes.get("data", 1)
+                m = "data" if ds > 1 and d % ds == 0 else None
+            elif a in ("embed", "layers", None):
+                m = None
+            else:
+                raise ValueError(f"unknown logical axis {a!r}")
+            flat = m if isinstance(m, tuple) else (m,)
+            if m is not None and any(f in used for f in flat):
+                m = None
+            if m is not None:
+                used.update(flat)
+            out.append(m)
+        return tuple(out)
+
+    def spec_tree(self, pd_tree):
+        return tree_map(lambda pd: self.resolve(pd.axes, pd.shape), pd_tree)
+
+    def placements(self, spec: Sequence) -> tuple:
+        """A resolved spec -> one placement per mesh dim: ``Shard(d)`` where
+        tensor dim ``d`` names that mesh axis, else ``Replicate()``.  A dim
+        named by several axes (("pod", "data")) is split over them in mesh
+        order, as JAX splits it.  A mesh axis of size 1 replicates: its one
+        shard is the whole tensor, and DTensor refuses views across a dim it
+        holds sharded, even over one rank."""
+        out = []
+        for name in self.mesh.mesh_dim_names:
+            dims = [d for d, m in enumerate(spec)
+                    if m == name or (isinstance(m, tuple) and name in m)]
+            split = dims and self.axis_sizes[name] > 1
+            out.append(Shard(dims[0]) if split else Replicate())
+        return tuple(out)
+
+    def placement_tree(self, pd_tree):
+        """PD tree -> tree of placements (the reference's NamedSharding tree)."""
+        return tree_map(
+            lambda pd: self.placements(self.resolve(pd.axes, pd.shape)), pd_tree)
+
+    def replicated(self, t: torch.Tensor) -> torch.Tensor:
+        """A plain tensor that every rank computes alike (positions, masks,
+        zero states) as a replicated DTensor on the mesh, so it meets the
+        model's DTensors in one op; itself without a mesh.  JAX treats such
+        constants as replicated implicitly."""
+        if self.mesh is None or isinstance(t, DTensor):
+            return t
+        return DTensor.from_local(t, self.mesh, (Replicate(),) * self.mesh.ndim,
+                                  run_check=False)
+
+    def constrain(self, x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+        """Redistribute to the logical axes' placements (the reference's
+        ``with_sharding_constraint``); a no-op without a mesh.  A plain
+        tensor is taken as the same on every rank (``replicated``)."""
+        if self.mesh is None:
+            return x
+        return self.replicated(x).redistribute(
+            self.mesh, self.placements(self.resolve(axes, x.shape)))
+
+    def grad_placements(self, placements: Sequence, tokens: Sequence) -> tuple:
+        """The gradient's placements for a ``local_map`` input of
+        ``placements`` whose body sees only the tokens of ``tokens``'
+        placements: ``Partial()`` (a sum still owed) on each mesh dim where
+        the input is replicated and the tokens are split, else unchanged."""
+        return tuple(Partial() if isinstance(p, Replicate) and isinstance(t, Shard)
+                     else p for p, t in zip(placements, tokens))
+
+    # -- collectives inside a ``local_map`` body -----------------------------
+    # c10d's stable calls under autograd functions that state their own
+    # backward, the same on every torch version and backend (gloo, nccl, the
+    # threaded test backend)
+    def sum_over(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """All-reduce (sum) over mesh ``axis``, the reference's ``psum``.  Its
+        backward is the identity: the sum leaves the body replicated over
+        ``axis``, so each rank's term takes the whole incoming gradient
+        (megatron's reduce from the model-parallel region)."""
+        return _SumOverRanks.apply(x, self.mesh.get_group(axis))
+
+    def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Tiled all-to-all over mesh ``axis`` on dim 0 (JAX's ``all_to_all``
+        with split and concat on axis 0, ``tiled=True``): chunk j of dim 0
+        goes to rank j, and the chunks received come back in rank order.  It
+        is its own transpose, so the backward is the same exchange."""
+        return _AllToAll.apply(x, self.mesh.get_group(axis))
+
+
+class _SumOverRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group), None
 
 
 NO_RULES = AxisRules(None)

@@ -1,5 +1,5 @@
-"""Dense FFN: gated (SwiGLU/GeGLU) or plain two-layer.  Port of
-``repro/models/mlp.py`` on one device."""
+"""Dense FFN: gated (SwiGLU/GeGLU) or plain two-layer, megatron TP over d_ff.
+Port of ``repro/models/mlp.py``."""
 from __future__ import annotations
 
 from typing import Dict
@@ -29,4 +29,5 @@ def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor, ax: AxisRules) -> torch.Tens
         h = act(x @ p["w_gate"]) * h
     else:
         h = act(h)
-    return h @ p["w_out"]
+    h = ax.constrain(h, "batch", None, "mlp")
+    return ax.constrain(h @ p["w_out"], "batch", None, "embed")

@@ -1,6 +1,6 @@
 """Model assembly: decoder-only LM and encoder-decoder.
 
-Port of ``repro/models/model.py`` on one device.  Where the reference scans
+Port of ``repro/models/model.py``.  Where the reference scans
 over stacked groups of layers, ``LM`` holds one parameter module per layer in
 an ``nn.ModuleList`` and runs them in order.  Public API::
 
@@ -17,6 +17,12 @@ layer, ...), "head"}`` (no ``head`` with tied embeddings); ``convert.py``
 maps the reference's stacked ``groups``/``tail`` layout onto it.  Caches are
 ``{"layers": (one dict per layer, ...)}`` with the batch on axis 0.
 
+On a mesh (``AxisRules(mesh)``) the parameters are DTensors placed by
+``convert.shard_params`` and a batch is placed ``Shard(0)`` over the batch
+axes (``launch.lowering.place_batch``); the embedding lookup is vocab-sharded
+(a local gather and a sum over "model" under ``local_map``) and embeddings
+and logits are pinned where the reference pins them.
+
 ``remat`` mirrors the reference's rematerialisation of each scanned group
 (one period of ``block_pattern``; the layers past the last whole period run
 plain): ``"full"`` recomputes a group's forward in backward
@@ -32,15 +38,16 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
     noop_context_fn,
 )
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (
-    NO_RULES, PD, AxisRules, ParamTree, cross_entropy_loss, rms_norm, softcap,
+    NO_RULES, PD, AxisRules, ParamTree, TensorSpec, rms_norm, softcap,
 )
 from repro_torch.models.transformer import AUX_KEYS
 
@@ -117,22 +124,51 @@ class LM(nn.Module):
 
     # --------------------------------------------------------- embeddings --
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
-        x = self.embed[ids.long()]
-        if self.cfg.tie_embeddings:
-            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
-        return x
+        """Megatron-style vocab-sharded lookup (local gather + sum over
+        "model"); a plain gather on one device or when the padded vocab
+        does not divide over "model"."""
+        cfg, ax = self.cfg, self.ax
+        ids = ids.long()
+        tp = ax.model_size()
+        if ax.mesh is None or tp <= 1 or cfg.padded_vocab % tp != 0:
+            x = self.embed[ax.replicated(ids)]
+        else:
+            Vl = cfg.padded_vocab // tp
+            mesh = ax.mesh
+
+            def body(e_l, ids_l):
+                loc = ids_l - mesh.get_local_rank("model") * Vl
+                ok = (loc >= 0) & (loc < Vl)
+                g = e_l[torch.clamp(loc, 0, Vl - 1)]
+                g = torch.where(ok[..., None], g, torch.zeros((), dtype=g.dtype,
+                                                              device=g.device))
+                return ax.sum_over(g, "model")
+
+            e_pl = ax.placements(("model", None))
+            ids_pl = ax.placements((ax.batch(ids.shape[0]), None))
+            x = local_map(
+                body, out_placements=(ax.placements((ax.batch(ids.shape[0]),
+                                                     None, None)),),
+                in_placements=(e_pl, ids_pl),
+                in_grad_placements=(ax.grad_placements(e_pl, ids_pl), ids_pl),
+                redistribute_inputs=True)(self.embed, ax.replicated(ids))
+        if cfg.tie_embeddings:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        return ax.constrain(x, "batch", None, "embed")
 
     def _inputs_to_x(self, batch) -> torch.Tensor:
         x = self._embed(batch["tokens"])
         if self.cfg.frontend == "patch" and "embeds" in batch:
-            x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
+            pe = self.ax.constrain(batch["embeds"].to(x.dtype), "batch", None, "embed")
+            x = torch.cat([pe, x], dim=1)
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = rms_norm(x, self.final_norm, cfg.rms_eps, zero_centered=True)
         logits = x @ (self.embed.T if cfg.tie_embeddings else self.head)
-        return softcap(logits, cfg.final_logit_softcap)
+        logits = softcap(logits, cfg.final_logit_softcap)
+        return self.ax.constrain(logits, "batch", None, "vocab")
 
     # ------------------------------------------------------------- stacks --
     def _run_train(self, x, *, causal=True, train=True, memory=None):
@@ -186,11 +222,23 @@ class LM(nn.Module):
         labels = batch["labels"]
         if logits.shape[1] != labels.shape[1]:  # vlm: loss on text tail only
             logits = logits[:, logits.shape[1] - labels.shape[1]:]
-        loss = cross_entropy_loss(logits, torch.clamp_min(labels, 0), labels >= 0)
+        loss = self._sharded_ce(logits, torch.clamp_min(labels, 0), labels >= 0)
         moe_loss = 0.01 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
         metrics = dict(aux)
         metrics["ce_loss"] = loss
         return loss + moe_loss, metrics
+
+    def _sharded_ce(self, logits, labels, mask) -> torch.Tensor:
+        """Mean token NLL in f32 over vocab-sharded logits without a gather:
+        the label's logit is picked by comparing with an iota, as the
+        reference does (``cross_entropy_loss``'s value, to the bit)."""
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        iota = self.ax.replicated(torch.arange(lf.shape[-1], device=lf.device))
+        picked = torch.sum(torch.where(iota == labels.long()[..., None], lf, 0.0),
+                           dim=-1)
+        m = mask.float()
+        return torch.sum((lse - picked) * m) / torch.clamp_min(torch.sum(m), 1.0)
 
     def prefill(self, batch, *, cache_len: Optional[int] = None,
                 all_logits: bool = False):
@@ -207,6 +255,21 @@ class LM(nn.Module):
         return {"layers": tuple(
             tfm.block_cache_pds(self.cfg, kind, batch, seq, memory_len)
             for kind in self.kinds)}
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, TensorSpec]:
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        if shape.kind in ("train", "prefill"):
+            out = {"tokens": TensorSpec((B, S), i32)}
+            if cfg.frontend == "patch":
+                Sp = int(S * cfg.frontend_fraction)
+                out = {"tokens": TensorSpec((B, S - Sp), i32),
+                       "embeds": TensorSpec((B, Sp, cfg.d_model), torch.bfloat16)}
+            if shape.kind == "train":
+                out["labels"] = TensorSpec((B, S), i32)
+            return out
+        return {"tokens": TensorSpec((B, 1), i32)}
 
 
 class EncDec(nn.Module):
@@ -244,7 +307,8 @@ class EncDec(nn.Module):
                 "dec": self.decoder.param_tree()}
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        x = frames.to(self.decoder.embed.dtype)
+        x = self.ax.constrain(frames.to(self.decoder.embed.dtype),
+                              "batch", None, "embed")
         x, _ = self.encoder._run_train(x, causal=False, train=False)
         return rms_norm(x, self.enc_norm, self.cfg.rms_eps, zero_centered=True)
 
@@ -254,8 +318,8 @@ class EncDec(nn.Module):
         x, aux = dec._run_train(dec._embed(batch["tokens"]), train=True,
                                 memory=memory)
         labels = batch["labels"]
-        loss = cross_entropy_loss(dec._logits(x), torch.clamp_min(labels, 0),
-                                  labels >= 0)
+        loss = dec._sharded_ce(dec._logits(x), torch.clamp_min(labels, 0),
+                               labels >= 0)
         metrics = dict(aux)
         metrics["ce_loss"] = loss
         return loss, metrics
@@ -276,6 +340,18 @@ class EncDec(nn.Module):
 
     def cache_pds(self, batch: int, seq: int, memory_len: int = 0):
         return self.decoder.cache_pds(batch, seq, memory_len or 4096)
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, TensorSpec]:
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        frames = TensorSpec((B, S, cfg.frontend_dim), torch.float32)
+        if shape.kind == "train":
+            return {"frames": frames, "tokens": TensorSpec((B, S), i32),
+                    "labels": TensorSpec((B, S), i32)}
+        if shape.kind == "prefill":
+            return {"frames": frames, "tokens": TensorSpec((B, 1024), i32)}
+        return {"tokens": TensorSpec((B, 1), i32)}
 
 
 def build_model(cfg: ModelConfig, ax: AxisRules = NO_RULES, params=None, *,

@@ -63,15 +63,17 @@ def rglru_apply(cfg: ModelConfig, p, x, ax: AxisRules, *,
                 conv_tail, h0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence recurrent block.  Returns (y, new_conv_tail, h_last)."""
     gate = _gelu(x @ p["w_gate"])
-    u, new_tail = _conv1d(x @ p["w_x"], p["conv_w"], p["conv_b"], conv_tail)
+    u = ax.constrain(x @ p["w_x"], "batch", None, "mlp")
+    u, new_tail = _conv1d(u, p["conv_w"], p["conv_b"], conv_tail)
     a, gin = _gates(p, u)                               # (B,T,D) f32
     h = h0.float()
     hs = []
     for t in range(a.shape[1]):
         h = a[:, t] * h + gin[:, t]
         hs.append(h)
-    hseq = torch.stack(hs, dim=1).to(x.dtype)
-    return (gate * hseq) @ p["w_out"], new_tail, h
+    hseq = ax.constrain(torch.stack(hs, dim=1).to(x.dtype), "batch", None, "mlp")
+    return ax.constrain((gate * hseq) @ p["w_out"], "batch", None, "embed"), \
+        new_tail, h
 
 
 def rglru_decode(cfg: ModelConfig, p, x, ax: AxisRules, *,
@@ -86,4 +88,4 @@ def rglru_decode(cfg: ModelConfig, p, x, ax: AxisRules, *,
     a, gin = _gates(p, conv[:, None, :])
     h = a[:, 0] * h0.float() + gin[:, 0]
     y = ((gate[:, 0] * h.to(x.dtype)) @ p["w_out"])[:, None]
-    return y, ext[:, 1:, :], h
+    return ax.constrain(y, "batch", None, "embed"), ext[:, 1:, :], h

@@ -10,6 +10,10 @@ Full-sequence time-mix runs the recurrence one of two ways, by the option
 updates; ``"chunked"`` calls ``kernels.ops.wkv_chunked``, which launches the
 hand-written Hopper kernel on a CUDA tensor and its plain version on a CPU
 tensor.  Decode is a single state update.
+
+On a mesh r/k/v/g shard on heads over "model" (``timemix_pds``), the block's
+outputs are pinned where the reference pins them, and the recurrence runs
+per rank on its own heads (``_wkv``).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -98,21 +103,47 @@ def timemix_apply(cfg: ModelConfig, p, x, ax: AxisRules, *,
     u = p["u"].float().reshape(H, hs)
     state0 = prev_state.float()
 
-    if ax.opt("rwkv_impl", "scan") == "chunked":
-        # the reference's chunked path keeps y in f32 for the head norm
-        y, state = ops.wkv_chunked(r, k, v, w, u, state0=state0,
-                                   chunk=int(ax.opt("rwkv_chunk", 16)),
-                                   return_state=True, out_dtype=torch.float32)
-    else:
-        rf, kf, vf = r.float(), k.float(), v.float()
-        state, ys = state0, []
-        for t in range(T):
-            state, yt = _wkv_step(state, (rf[:, t], kf[:, t], vf[:, t], w[:, t]), u)
-            ys.append(yt)
-        y = torch.stack(ys, dim=1)                          # (B,T,H,hs)
+    y, state = _wkv(r, k, v, w, u, state0, ax, impl=ax.opt("rwkv_impl", "scan"),
+                    chunk=int(ax.opt("rwkv_chunk", 16)))
 
     y = _headnorm(cfg, p, y, B, T, d).to(x.dtype) * g
-    return y @ p["wo"], x[:, -1, :], state
+    return ax.constrain(y @ p["wo"], "batch", None, "embed"), x[:, -1, :], state
+
+
+def _wkv_scan(r, k, v, w, u, state0):
+    """The plain recurrence, one single-step update after another."""
+    rf, kf, vf = r.float(), k.float(), v.float()
+    state, ys = state0, []
+    for t in range(r.shape[1]):
+        state, yt = _wkv_step(state, (rf[:, t], kf[:, t], vf[:, t], w[:, t]), u)
+        ys.append(yt)
+    return torch.stack(ys, dim=1), state                    # (B,T,H,hs)
+
+
+def _wkv(r, k, v, w, u, state0, ax: AxisRules, *, impl: str, chunk: int = 16):
+    """The WKV recurrence over r/k/v/w (B,T,H,hs) from ``state0``: y in f32
+    (the head norm's input) and the final state.  ``impl`` "chunked" is
+    ``ops.wkv_chunked`` (the kernel on a CUDA tensor), "scan" the plain loop.
+
+    On a mesh it runs per rank under ``local_map``: r/k/v/w, ``u`` and the
+    state on (batch -> data, heads -> model), so each rank launches the
+    kernel on its own heads (a custom op DTensor cannot see through), and
+    the scan's per-head products never flatten two sharded dims."""
+    def run(r, k, v, w, u, state0):
+        if impl == "chunked":
+            return ops.wkv_chunked(r, k, v, w, u, state0=state0, chunk=chunk,
+                                   return_state=True, out_dtype=torch.float32)
+        return _wkv_scan(r, k, v, w, u, state0)
+
+    if ax.mesh is None:
+        return run(r, k, v, w, u, state0)
+    streams = ax.placements(ax.resolve(("batch", None, "heads", None), r.shape))
+    heads = ax.placements(ax.resolve(("heads", None), u.shape))
+    states = ax.placements(ax.resolve(("batch", "heads", None, None), state0.shape))
+    return local_map(run, out_placements=(streams, states),
+                     in_placements=(streams,) * 4 + (heads, states),
+                     redistribute_inputs=True)(
+        r, k, v, w, ax.replicated(u), ax.replicated(state0))
 
 
 def _wkv_chunked(r, k, v, w, u, state0, *, chunk: int = 128):
@@ -142,11 +173,9 @@ def timemix_decode(cfg: ModelConfig, p, x, ax: AxisRules, *,
     xz = prev_shift[:, None, :]
     r, k, v, g, w = _tm_project(cfg, p, x, xz)
     u = p["u"].float().reshape(H, hs)
-    state, y = _wkv_step(
-        prev_state.float(),
-        (r.float()[:, 0], k.float()[:, 0], v.float()[:, 0], w[:, 0]), u)
-    y = _headnorm(cfg, p, y[:, None].reshape(B, 1, H, hs), B, 1, d).to(x.dtype) * g
-    return y @ p["wo"], x[:, -1, :], state
+    y, state = _wkv(r, k, v, w, u, prev_state.float(), ax, impl="scan")
+    y = _headnorm(cfg, p, y, B, 1, d).to(x.dtype) * g
+    return ax.constrain(y @ p["wo"], "batch", None, "embed"), x[:, -1, :], state
 
 
 def channelmix_apply(cfg: ModelConfig, p, x, ax: AxisRules, *, prev_shift):
@@ -155,5 +184,5 @@ def channelmix_apply(cfg: ModelConfig, p, x, ax: AxisRules, *, prev_shift):
     mix = p["mix_k"].float()
     xf = x.float()
     xm = (xf + (xz.float() - xf) * mix).to(x.dtype)
-    h = torch.square(F.relu(xm @ p["wk"]))
-    return h @ p["wv"], x[:, -1, :]
+    h = ax.constrain(torch.square(F.relu(xm @ p["wk"])), "batch", None, "mlp")
+    return ax.constrain(h @ p["wv"], "batch", None, "embed"), x[:, -1, :]

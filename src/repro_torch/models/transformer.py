@@ -120,11 +120,11 @@ def _rwkv_full(cfg, p, x, ax):
     zero token shifts).  Returns (x_out, decode cache entry)."""
     B, _, d = x.shape
     H, hs = d // cfg.rwkv_head_size, cfg.rwkv_head_size
-    zeros = x.new_zeros((B, d))
+    zeros = ax.replicated(torch.zeros((B, d), dtype=x.dtype, device=x.device))
     y, tm_shift, state = rwkv_mod.timemix_apply(
         cfg, p["tm"], _norm(cfg, p, "ln1", x), ax, prev_shift=zeros,
-        prev_state=torch.zeros((B, H, hs, hs), dtype=torch.float32,
-                               device=x.device))
+        prev_state=ax.replicated(torch.zeros((B, H, hs, hs), dtype=torch.float32,
+                                             device=x.device)))
     x = x + y
     y, cm_shift = rwkv_mod.channelmix_apply(
         cfg, p["cm"], _norm(cfg, p, "ln2", x), ax, prev_shift=zeros)
@@ -135,8 +135,9 @@ def _recurrent_full(cfg, p, x, ax):
     B, _, d = x.shape
     y, tail, hlast = rglru_mod.rglru_apply(
         cfg, p["rec"], _norm(cfg, p, "ln1", x), ax,
-        conv_tail=x.new_zeros((B, cfg.conv1d_width - 1, d)),
-        h0=torch.zeros((B, d), dtype=torch.float32, device=x.device))
+        conv_tail=ax.replicated(torch.zeros((B, cfg.conv1d_width - 1, d),
+                                            dtype=x.dtype, device=x.device)),
+        h0=ax.replicated(torch.zeros((B, d), dtype=torch.float32, device=x.device)))
     x = x + y
     x = x + mlp_mod.mlp_apply(cfg, p["mlp"], _norm(cfg, p, "ln2", x), ax)
     return x, {"conv_tail": tail, "h": hlast}
@@ -174,10 +175,10 @@ def block_prefill(cfg: ModelConfig, kind: str, p, x, ax: AxisRules, *,
         h = _norm(cfg, p, "ln1", x)
         # recompute k/v for the cache (cheap relative to attention)
         pos = torch.arange(S, device=x.device).expand(B, S)
-        _, k, v = attn._project_qkv(cfg, p["attn"], h, pos)
+        _, k, v = attn._project_qkv(cfg, p["attn"], h, pos, ax)
         a = attn.attention_train(cfg, p["attn"], h, ax, window=window, causal=True)
         x = x + _post(cfg, p, "ln1_post", a)
-        cache = _kv_to_cache(k, v, cache_len or S, window)
+        cache = _kv_to_cache(k, v, cache_len or S, window, ax)
         if memory is not None:
             x = x + attn.attention_train(cfg, p["xattn"], _norm(cfg, p, "ln_x", x),
                                          ax, memory=memory)
@@ -192,7 +193,7 @@ def block_prefill(cfg: ModelConfig, kind: str, p, x, ax: AxisRules, *,
     raise ValueError(kind)
 
 
-def _kv_to_cache(k, v, cache_len: int, window: int):
+def _kv_to_cache(k, v, cache_len: int, window: int, ax: AxisRules):
     """Store prefill K/V into a (possibly ring) cache of length cache_len."""
     S = k.shape[1]
     eff = min(window, cache_len) if window else cache_len
@@ -202,15 +203,19 @@ def _kv_to_cache(k, v, cache_len: int, window: int):
 
     if S >= eff:
         ck, cv = k[:, S - eff:], v[:, S - eff:]
-        if window and eff == cache_len:
+        shift = S % cache_len
+        if window and eff == cache_len and shift:
             # ring semantics: absolute position p lives at slot p % cache_len
             # (decode writes at pos % cache_len), so rotate the stored window
-            ck = torch.roll(ck, S % cache_len, dims=1)
-            cv = torch.roll(cv, S % cache_len, dims=1)
+            # (``torch.roll`` by two slices: DTensor has no rule for roll in
+            # every torch version)
+            ck = torch.cat([ck[:, -shift:], ck[:, :-shift]], dim=1)
+            cv = torch.cat([cv[:, -shift:], cv[:, :-shift]], dim=1)
         ck, cv = pad(ck, cache_len - eff), pad(cv, cache_len - eff)
     else:
         ck, cv = pad(k, cache_len - S), pad(v, cache_len - S)
-    return {"k": ck, "v": cv}
+    return {"k": ax.constrain(ck, "batch", "kv_seq", None, None),
+            "v": ax.constrain(cv, "batch", "kv_seq", None, None)}
 
 
 def block_decode(cfg: ModelConfig, kind: str, p, x, cache, pos, ax: AxisRules,

@@ -7,10 +7,13 @@ returns new trees from a jitted function, the port writes the new parameters
 and moments in place under ``torch.no_grad()``, so the model that holds the
 parameter tensors (``build_model(cfg, params=tree)``) sees them.
 
-Moments are declared as PD trees (``state_pds``) like the parameters.  One
-device: ``AxisRules`` carries no mesh, so ZeRO-1's data axis has size 1 and
-``_zero1_pd`` leaves every descriptor as it is; sharded moments wait for the
-multi-device slice.
+Moments are declared as PD trees (``state_pds``) like the parameters.  On a
+mesh with ``zero1`` each moment also shards its first data-divisible
+replicated axis over "data" (logical axis "zero"), and ``update`` runs
+ZeRO-1 by hand: each gradient is redistributed to its moments' placements
+(a reduce-scatter over "data"), the moments and the step are computed on
+the shard, and the new shard is gathered back to the parameter's
+placements before it is written.
 """
 from __future__ import annotations
 
@@ -18,8 +21,12 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import zeros as dtensor_zeros
 
-from repro_torch.models.common import PD, AxisRules, tree_leaves, tree_map
+from repro_torch.models.common import (
+    PD, AxisRules, tree_leaves, tree_map, tree_map_with,
+)
 
 
 @dataclass(frozen=True)
@@ -50,7 +57,7 @@ class AdamW:
     def __init__(self, cfg: AdamWConfig, ax: AxisRules):
         self.cfg = cfg
         self.ax = ax
-        self.data_size = 1      # ax.mesh is None: no data axis to shard over
+        self.data_size = ax.axis_sizes.get("data", 1) if cfg.zero1 else 1
 
     def state_pds(self, param_pds) -> Dict[str, Any]:
         def mom(pd: PD) -> PD:
@@ -58,12 +65,31 @@ class AdamW:
         return {"m": tree_map(mom, param_pds), "v": tree_map(mom, param_pds),
                 "step": PD((), (), "zeros")}
 
-    def init(self, params) -> Dict[str, Any]:
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=self.cfg.moment_dtype, device=p.device)
+    def init(self, params, pds=None) -> Dict[str, Any]:
+        """Zero moments and step, in ``params``' structure.  On a mesh they are
+        DTensors placed by ``state_pds(pds)`` (``pds`` is the parameters'
+        descriptors, needed there), each rank allocating its shards only."""
         device = tree_leaves(params)[0].device
-        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-                "step": torch.zeros((), dtype=torch.int32, device=device)}
+        if self.ax.mesh is None:
+            def zeros(p):
+                return torch.zeros(p.shape, dtype=self.cfg.moment_dtype,
+                                   device=p.device)
+            return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+                    "step": torch.zeros((), dtype=torch.int32, device=device)}
+        if pds is None:
+            raise ValueError("on a mesh AdamW.init needs the parameters' pds "
+                             "to place the moments")
+        ax, mesh = self.ax, self.ax.mesh
+
+        def zeros(p, pd):
+            return dtensor_zeros(pd.shape, dtype=self.cfg.moment_dtype,
+                                 device_mesh=mesh,
+                                 placements=ax.placements(ax.resolve(pd.axes, pd.shape)))
+        moments = self.state_pds(pds)["m"]
+        return {"m": tree_map_with(zeros, params, moments),
+                "v": tree_map_with(zeros, params, moments),
+                "step": dtensor_zeros((), dtype=torch.int32, device_mesh=mesh,
+                                      placements=ax.placements(()))}
 
     @torch.no_grad()
     def update(self, params, grads, state) -> Tuple[Any, Any]:
@@ -82,14 +108,28 @@ class AdamW:
 
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state["m"]), tree_leaves(state["v"])):
-            gf = g.to(c.moment_dtype) * scale
+            # on a mesh: the gradient and the parameter on the moments'
+            # shards (in-place DTensor ops need equal placements)
+            gf = _like(g, m).to(c.moment_dtype) * scale
+            pm = _like(p, m)
             m.copy_(c.b1 * m + (1.0 - c.b1) * gf)
             v.copy_(c.b2 * v + (1.0 - c.b2) * torch.square(gf))
             mh = m / bc1
             vh = v / bc2
-            delta = mh / (torch.sqrt(vh) + c.eps) + c.weight_decay * p.to(mh.dtype)
-            p.copy_((p.float() - c.lr * delta.float()).to(p.dtype))
+            delta = mh / (torch.sqrt(vh) + c.eps) + c.weight_decay * pm.to(mh.dtype)
+            p.copy_(_like((pm.float() - c.lr * delta.float()).to(p.dtype), p))
         return params, {"m": state["m"], "v": state["v"], "step": step}
+
+
+def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` redistributed to ``ref``'s placements (a no-op off a mesh)."""
+    if isinstance(ref, DTensor) and t.placements != ref.placements:
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
+
+
+def _storage(t: torch.Tensor) -> int:
+    return (t.to_local() if isinstance(t, DTensor) else t).data_ptr()
 
 
 def make_train_step(model, optimizer: AdamW):
@@ -102,7 +142,7 @@ def make_train_step(model, optimizer: AdamW):
     layout, to ``optimizer.update``."""
     def train_step(params, opt_state, batch):
         held = tree_leaves(model.param_tree())
-        if [p.data_ptr() for p in held] != [p.data_ptr() for p in tree_leaves(params)]:
+        if [_storage(p) for p in held] != [_storage(p) for p in tree_leaves(params)]:
             raise ValueError("params are not the tensors the model holds")
         for p in held:
             p.grad = None

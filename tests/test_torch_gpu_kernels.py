@@ -409,3 +409,39 @@ def test_wrappers_refuse_inputs_that_require_grad(cuda, name):
     np.testing.assert_allclose(
         got.cpu().numpy(), plain(*inputs).cpu().numpy(),
         **(WKV_TOL["f32"] if name == "wkv_chunked" else tol("f32")))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_wkv_chunked_kernel_sharded_over_heads(cuda, dtype):
+    """rwkv6's chunked WKV on a mesh: under ``local_map`` each rank of a
+    threaded (1, 2) world on the card launches the kernel once on its own
+    half of the heads (u and the state split with them), and the gathered
+    output and state equal the kernel's on all heads."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import threaded_world
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import AxisRules
+    from repro_torch.models.rwkv6 import _wkv
+
+    B, T, H, hs = 2, 64, 4, 64
+    r, k, v, w, u = (from_numpy(a, cuda) for a in wkv_inputs(B, T, H, hs))
+    r, k, v = (x.to(DTYPES[dtype]) for x in (r, k, v))
+    s0 = from_numpy(arr(B, H, hs, hs, scale=0.3), cuda)
+    want = _wkv(r, k, v, w, u, s0, AxisRules(None), impl="chunked", chunk=16)
+    before = ops.launch_counts()["wkv_chunked"]
+
+    def rank_fn(rank):
+        ax = AxisRules(make_mesh((1, 2), ("data", "model"), "cuda"))
+        y, s = _wkv(*(ax.replicated(t) for t in (r, k, v, w, u, s0)), ax,
+                    impl="chunked", chunk=16)
+        return y.full_tensor(), s.full_tensor(), y.to_local().shape[2]
+
+    out = threaded_world(2, rank_fn, cuda)
+    assert ops.launch_counts()["wkv_chunked"] == before + 2
+    for y, s, heads in out:
+        assert heads == H // 2
+        for got, wnt in ((y, want[0]), (s, want[1])):
+            np.testing.assert_allclose(got.cpu().numpy(), wnt.cpu().numpy(),
+                                       **WKV_TOL["f32"])
