@@ -13,8 +13,10 @@ of qwen2-7b and mixtral-8x7b to ``MiniEngine``'s measured throughput (the
 paper's Table 2, ``repro_torch.launch.serve``), serve rwkv6-1.6b at full
 width through ``MiniEngine``, whose prefill runs the chunked WKV6 kernel in
 every layer, and train yi-9b at full width (``repro_torch.launch.train``, a
-path that launches no kernel: none has a backward), and run the sharded
-path at full width in a threaded world of ranks on the one card.  Phases,
+path that launches no kernel: none has a backward), run the sharded path at
+full width in a threaded world of ranks on the one card, and cost steps and
+production meshes without running them (``repro_torch.launch.dryrun``, the
+``hlo`` oracle).  Phases,
 one JSON line each (``simulate``, ``table2`` one per run or cell and one for the phase):
 
 1. ``env``        the card as ``nvidia-smi`` names it, torch and CUDA versions
@@ -113,7 +115,24 @@ one JSON line each (``simulate``, ``table2`` one per run or cell and one for the
                   prefill of 2048 tokens, the WKV6 kernel launched once per
                   rank per layer on 8 of the 32 heads, logits and states
                   within 1e-4; (d) yi-9b saved on (8,) and restored onto
-                  (2, 4), every leaf byte-equal
+                  (2, 4), every leaf byte-equal; (e) yi-9b, mixtral-8x7b and
+                  rwkv6-1.6b at smoke width on (2, 4) (2 KV heads over 4
+                  ranks): one loss within 1e-5 relative and every gradient
+                  within 1e-4 of its largest
+12. ``cost``      the cost extraction (``repro_torch.launch.hlo_cost``, steps
+                  counted on fake tensors, nothing allocated): (a) the ``hlo``
+                  oracle's prices of phase ``kernels``' three timed shapes
+                  beside their device ms; (b) phase ``train``'s full-width
+                  step counted, beside ``model_flops`` and its measured step
+                  ms, with ``roofline_terms``; (c) ``python -m
+                  repro_torch.launch.dryrun`` of mixtral-8x7b ``decode_32k``
+                  and yi-9b ``train_4k`` on the pod mesh (a ``fake`` group
+                  of 256 ranks) at full width, each in a subprocess; (d)
+                  ``calibrate --oracle hlo`` of mixtral-8x7b; (e) first,
+                  in a subprocess, ten smoke steps on fake (2, 4) and
+                  (1, 4) worlds, each count equal to the CPU's
+                  (``COUNTER_CELLS``).  Every cell and count must be finite
+                  and positive, and no kernel may launch
 
 Any failing phase makes the exit code non-zero.  There is no CPU path: without
 a CUDA device the script fails.  The line before the card's name lists every
@@ -146,22 +165,25 @@ import torch  # noqa: E402
 from repro_torch.api import SimSpec, build as build_system, cli, sweep  # noqa: E402
 from repro_torch.calib import load_calibrated_ops  # noqa: E402
 from repro_torch.calib import fit as calib_fit  # noqa: E402
-from repro_torch.calib.oracle import KernelOracle  # noqa: E402
+from repro_torch.calib.oracle import HLOCostOracle, KernelOracle  # noqa: E402
 from repro_torch.calib.study import (  # noqa: E402
     SIZES, af_spread, device_ms, fit, two_fits)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.hardware import H100_SXM, ParallelismConfig  # noqa: E402
 from repro_torch.core.opmodels.calibration import measure_hardware  # noqa: E402
 from repro_torch.core.workflows.colocated import build_colocated  # noqa: E402
 from repro_torch.core.predictor import ExecutionPredictor  # noqa: E402
 from repro_torch.core.routing import BalancedRouting  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.wkv_chunk import operations as wkv_operations  # noqa: E402
 from repro_torch.kernels.wkv_chunk import wkv_chunked_plain  # noqa: E402
+from repro_torch.launch import hlo_cost  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import AxisRules, build_model, init_tree  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.common import shape_tree, tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving.engine import MiniEngine  # noqa: E402
 from repro_torch.training import checkpoint as ckpt  # noqa: E402
 from repro_torch.training.data import DataConfig, SyntheticLM  # noqa: E402
@@ -709,11 +731,7 @@ def time_wkv() -> list:
         ms = time_ms(kernel)
         plain_ms = time_ms(plain, reps=3)
         dev_ms = device_ms(kernel)
-        # per (b, h) and chunk: r_dec @ S and the state carry (C x hs x hs each),
-        # the strictly lower intra-chunk r_dec k_dec^T and its product with v
-        # (C(C-1)/2 x hs each), the bonus; all f32
-        per_chunk = 4 * C * hs * hs + 2 * C * (C - 1) * hs + 4 * C * hs
-        b_ms, b_by = bound(B * H * (T // C) * per_chunk,
+        b_ms, b_by = bound(wkv_operations(B, T, H, hs, C),
                            nbytes(r, k, v, w, u, s0, y, s), torch.float32)
         out.append(dict(kernel="wkv_chunked", today=T == PARITY_LEN,
                         shape=f"B={B} T={T} H={H} hs={hs} C={C}, bf16 r/k/v, "
@@ -1606,7 +1624,7 @@ def train_resume(out_dir: str) -> dict:
             "diff": abs(resumed - straight)}
 
 
-def phase_train(card: str) -> None:
+def phase_train(card: str) -> dict:
     t0 = time.perf_counter()
     parity = train_parity()
     gc.collect()
@@ -1617,6 +1635,7 @@ def phase_train(card: str) -> None:
     say("train", ok=not FAILURES, grads_cuda_vs_cpu=parity, full_width=full,
         resume=resume, wall_s=time.perf_counter() - t0)
     stop_if_failed("train")
+    return full
 
 
 # ------------------------------------------------------------------- shard --
@@ -1631,6 +1650,8 @@ SHARD_TRAIN = dict(arch="yi-9b", layers=2, mesh=(2, 4), batch=4, seq=512)
 SHARD_RWKV = dict(arch="rwkv6-1.6b", layers=4, mesh=(1, 4), seq=2048,
                   options={"rwkv_impl": "chunked", "rwkv_chunk": 16})
 SHARD_RESHARD = dict(arch="yi-9b", layers=2, mesh_from=(8,), mesh_to=(2, 4))
+SHARD_GRADS = dict(archs=("yi-9b", "mixtral-8x7b", "rwkv6-1.6b"), mesh=(2, 4),
+                   batch=4, seq=32)
 TOL_SHARD_REL = 1e-4          # logits, states, gradients: of the largest
 TOL_SHARD_LOSS_REL = 1e-5
 TOL_SHARD_UPDATE = 1e-5       # ZeRO-1 AdamW given the unsharded gradients
@@ -1930,6 +1951,60 @@ def shard_rwkv(cfg, mesh_shape, seq: int, options: dict, device) -> dict:
             "tol_rel": TOL_SHARD_REL, "failures": failures}
 
 
+def shard_grads(archs, mesh_shape, batch: int, seq: int, device) -> dict:
+    """(e) one loss and every gradient of each smoke config in ``archs`` on a
+    mesh against the same unsharded: the loss within 1e-5 relative, each
+    leaf's gradient within 1e-4 of its largest.  Smoke widths, because there
+    2 KV heads repeat over 4 "model" ranks (``AxisRules.shared_product``
+    splits them and the K/V weight gradients; no full-width config above
+    has fewer KV heads than ranks), and rwkv6's decay LoRA and bonus ``u``
+    take their sharded gradients.  MoE experts get capacity E / k, so no
+    rank drops a token."""
+    from repro_torch.convert import shard_params
+    from repro_torch.launch.lowering import place_batch
+    from repro_torch.launch.mesh import make_mesh
+    device = torch.device(device)
+    cases = []
+    for arch in archs:
+        cfg = get_config(arch, smoke=True)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor_train=cfg.moe.num_experts / cfg.moe.top_k))
+        data = {k: torch.from_numpy(v).to(device) for k, v in
+                SyntheticLM(DataConfig(cfg.vocab_size, seq, batch)).batch(0).items()}
+        cases.append((cfg, _init(cfg, device), data))
+
+    def loss_grads(cfg, pds, params, data, ax):
+        model = build_model(cfg, ax, params=shard_params(
+            tree_map(torch.clone, params), pds, ax))
+        model.requires_grad_(True)
+        loss, _ = model.loss(place_batch(ax, data))
+        loss.backward()
+        return (float(_full(loss).detach()),
+                [_full(t.grad) for t in tree_leaves(model.param_tree())])
+
+    want = [loss_grads(cfg, pds, params, data, AxisRules(None))
+            for cfg, (pds, params), data in cases]
+
+    def rank_fn(rank):
+        ax = AxisRules(make_mesh(mesh_shape, axes_of(mesh_shape), device.type))
+        return [loss_grads(cfg, pds, params, data, ax)
+                for cfg, (pds, params), data in cases]
+
+    got = threaded_world(math.prod(mesh_shape), rank_fn, device)[0]
+    rows, failures = [], []
+    for arch, (loss, grads), (loss0, grads0) in zip(archs, got, want):
+        row = {"arch": arch, "loss_rel": abs(loss - loss0) / abs(loss0),
+               "grad_rel": max(_rel(g, g0) for g, g0 in zip(grads, grads0))}
+        rows.append(row)
+        if not row["loss_rel"] <= TOL_SHARD_LOSS_REL:
+            failures.append(f"{arch} loss {row['loss_rel']:.3e} from the unsharded")
+        if not row["grad_rel"] <= TOL_SHARD_REL:
+            failures.append(f"{arch} gradient {row['grad_rel']:.3e} of its largest")
+    return {"mesh": list(mesh_shape), "batch": batch, "seq": seq, "smoke": True,
+            "archs": rows, "failures": failures}
+
+
 def shard_reshard(cfg, mesh_from, mesh_to, device, out_dir: str) -> dict:
     """(d) save ``cfg``'s parameters sharded on ``mesh_from`` and restore them
     onto ``mesh_to`` (the reference's elastic-resharding test): every leaf
@@ -2032,7 +2107,10 @@ def phase_shard(card: str) -> int:
             ("reshard", lambda: shard_reshard(
                 full_width(SHARD_RESHARD), SHARD_RESHARD["mesh_from"],
                 SHARD_RESHARD["mesh_to"], "cuda",
-                os.path.join(ROOT, "build", "shard_ckpt")))):
+                os.path.join(ROOT, "build", "shard_ckpt"))),
+            ("grads", lambda: shard_grads(SHARD_GRADS["archs"], SHARD_GRADS["mesh"],
+                                          SHARD_GRADS["batch"], SHARD_GRADS["seq"],
+                                          "cuda"))):
         t1 = time.perf_counter()
         res = fn()
         res["wall_s"] = time.perf_counter() - t1
@@ -2051,6 +2129,248 @@ def phase_shard(card: str) -> int:
               for k, v in runs.items()})
     stop_if_failed("shard")
     return runs["rwkv"]["wkv_launches"]
+
+
+# -------------------------------------------------------------------- cost --
+# Phase ``cost``: the port's cost extraction (``launch/hlo_cost.py``), which
+# runs steps on fake tensors and allocates nothing: the ``hlo`` oracle's
+# prices against the kernels' device time, the training step counted against
+# its measured time, two full-width dry-run cells on the production pod mesh
+# (a ``fake`` process group of 256 ranks), and ``calibrate --oracle hlo``.
+COST_CELLS = (("mixtral-8x7b", "decode_32k"), ("yi-9b", "train_4k"))
+COST_MODEL = "mixtral-8x7b"
+# Per-device flops of smoke steps on fake worlds, as the counter gives them on
+# the CPU (tests/test_torch_dryrun.py holds this table to its own counts):
+# (arch, step kind, ("data", "model") mesh) -> flops.  Phase cost counts them
+# again with this machine's torch, on fake CUDA tensors; equal counts show
+# that its DTensor hands the counter the same local ops.
+COUNTER_SHAPES = {"train": ("mini_train", 32, 4, "train"),
+                  "prefill": ("mini_prefill", 64, 4, "prefill"),
+                  "decode": ("mini_dec", 64, 4, "decode")}
+COUNTER_CELLS = {
+    ("yi-9b", "train", (2, 4)): 11534336, ("yi-9b", "prefill", (2, 4)): 8945664,
+    ("yi-9b", "decode", (2, 4)): 147456,
+    ("mixtral-8x7b", "train", (2, 4)): 12910592,
+    ("mixtral-8x7b", "prefill", (2, 4)): 12222464,
+    ("mixtral-8x7b", "decode", (2, 4)): 284672,
+    ("rwkv6-1.6b", "train", (2, 4)): 13565952,
+    ("rwkv6-1.6b", "prefill", (2, 4)): 7503872,
+    ("rwkv6-1.6b", "decode", (2, 4)): 149504,
+    ("yi-9b", "train", (1, 4)): 23068672,
+}
+
+
+def counter_cells(device: str = "cuda") -> dict:
+    """The counter's per-device flops of COUNTER_CELLS, each on a ``fake``
+    world of its mesh, fake tensors on ``device``."""
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.lowering import build_step, lower_step
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    for arch, kind, shape in COUNTER_CELLS:
+        with fake_world(shape[0] * shape[1]):
+            mesh = make_mesh(shape, ("data", "model"), device)
+            bundle = build_step(get_config(arch, smoke=True), mesh,
+                                ShapeConfig(*COUNTER_SHAPES[kind]))
+            out[arch, kind, shape] = lower_step(bundle, mesh, device=device) \
+                .compile().cost_analysis()["flops"]
+    return out
+
+
+def cost_counter() -> dict:
+    """(e) COUNTER_CELLS counted in a subprocess (a process group of its
+    own) and held exactly to the CPU's counts."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    prog = ("import json, logging, chip_smoke; logging.getLogger("
+            "'torch.distributed.tensor._redistribute').setLevel(logging.ERROR); "
+            "print('COUNTS', json.dumps([[list(k), v] for k, v in "
+            "chip_smoke.counter_cells().items()]))")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", prog], cwd=ROOT, env=env, timeout=300,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("COUNTS ")]
+    if proc.returncode != 0 or not lines:
+        fail(f"cost: counter cells exited {proc.returncode}: {proc.stdout[-3000:]}")
+        return {"rc": proc.returncode}
+    got = {(a, k, tuple(m)): v for (a, k, m), v in json.loads(lines[-1][len("COUNTS "):])}
+    cells = [{"arch": a, "kind": k, "mesh": list(m), "flops": got.get((a, k, m)),
+              "cpu_flops": want} for (a, k, m), want in COUNTER_CELLS.items()]
+    off = [c for c in cells if c["flops"] != c["cpu_flops"]]
+    if off:
+        fail(f"cost: the counter's flops differ from the CPU's on {off}")
+    return {"cells": cells, "equal": not off, "process_wall_s": time.perf_counter() - t0}
+
+
+def cost_oracle(rows: dict, device: str = "cuda") -> dict:
+    """(a) ``HLOCostOracle(H100_SXM)`` at the shapes phase ``kernels`` timed
+    today (PERF.md section 6, rows 1-3), beside their device ms."""
+    import re
+    orc = HLOCostOracle(H100_SXM, device=device)
+    dec = re.search(r"B=(\d+) T=(\d+) H=(\d+) K=(\d+) hd=(\d+)",
+                    rows["decode_attention"]["shape"])
+    B, T, H, K, hd = (int(g) for g in dec.groups())
+    sizes = dict(GROUPED_TIMED)["today"]
+    t0 = time.perf_counter()
+    price_s = {
+        "flash_attention": orc.attention_prefill(
+            [TODAY["flash_attention"]], [TODAY["flash_attention"]], 32, 8, 128),
+        "decode_attention": orc.attention_decode([T] * B, H, K, hd),
+        "grouped_gemm": orc.grouped_gemm(sizes, 4096, 14336),
+    }
+    wall = time.perf_counter() - t0
+    out = {}
+    for name, s in price_s.items():
+        dev = rows[name]["device_ms"]
+        if not (math.isfinite(s) and s > 0):
+            fail(f"cost: the hlo oracle priced {name} at {s!r}")
+        out[name] = {"shape": rows[name]["shape"], "hlo_price_ms": s * 1e3,
+                     "device_ms": dev, "price_over_device": s * 1e3 / dev}
+    return {"prices": out, "cache_keys": [list(k) for k in orc._cache],
+            "oracle_dtype": "f32 (the reference's shapes)",
+            "kernels_dtype": "bf16", "wall_s": wall}
+
+
+def cost_train(full: dict, device: str = "cuda") -> dict:
+    """(b) phase ``train``'s full-width step (TRAIN_RUN: yi-9b, 8 layers,
+    2 x 4096 tokens, ``remat="full"``, f32) counted on fake CUDA tensors,
+    beside ``model_flops`` and the step time phase ``train`` measured."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_RUN["layers"])
+    ax = AxisRules(None)
+    model = build_model(cfg, ax, remat=TRAIN_RUN["remat"])
+    opt = AdamW(AdamWConfig(lr=TRAIN_RUN["lr"]), ax)
+    step = make_train_step(model, opt)
+    pds = model.pds()
+    shape = ShapeConfig("chip_smoke_train", TRAIN_RUN["seq_len"],
+                        TRAIN_RUN["global_batch"], "train")
+
+    def train_step(params, opt_state, batch):
+        model.load_params(params)
+        model.requires_grad_(True)
+        return step(params, opt_state, batch)
+    args = (shape_tree(pds, torch.float32),
+            shape_tree(opt.state_pds(pds), torch.float32), model.input_specs(shape))
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    mode = hlo_cost.fake_mode()
+    with mode:
+        fake = [hlo_cost.fake_args(a, mode, device) for a in args]
+        with hlo_cost.Counter() as counter:
+            train_step(*fake)
+    wall = time.perf_counter() - t0
+    costs = counter.totals()
+    if ops.launch_counts() != before:
+        fail("cost: counting the training step launched a kernel")
+    if not costs["flops"] > 0:
+        fail(f"cost: the training step counted {costs['flops']!r} flops")
+    tokens = TRAIN_RUN["seq_len"] * TRAIN_RUN["global_batch"]
+    formula = model_flops(cfg, tokens, TRAIN_RUN["seq_len"], TRAIN_RUN["global_batch"])
+    step_s = full["step_ms"]["mean"] / 1e3
+    arg_bytes = sum(math.prod(t.shape) * t.dtype.itemsize
+                    for a in args for t in tree_leaves(a))
+    return {"counted": costs, "model_flops": formula,
+            "counted_over_model_flops": costs["flops"] / formula,
+            "step_ms_measured": full["step_ms"]["mean"],
+            "counted_tflop_s": costs["flops"] / step_s / 1e12,
+            "model_tflop_s": formula / step_s / 1e12,
+            "roofline_h100_sxm_preset": hlo_cost.roofline_terms(
+                costs, n_chips=1, peak_flops=H100_SXM.peak_flops,
+                hbm_bw=H100_SXM.hbm_bw, ici_bw=H100_SXM.intra_node_bw),
+            "t_compute_f32_peak_s": costs["flops"] / PEAK_OPS[torch.float32],
+            "counted_peak_gb": (arg_bytes + counter.peak_bytes) / 1e9,
+            "measured_peak_gb": full["peak_mem_gb"], "wall_s": wall}
+
+
+def cost_dryrun() -> list:
+    """(c) ``python -m repro_torch.launch.dryrun`` of COST_CELLS on the pod
+    mesh, each in a subprocess: a ``fake`` group of 256 ranks, fake CUDA
+    tensors, full width."""
+    import importlib.util
+    if importlib.util.find_spec("torch.testing._internal.distributed.fake_pg") is None:
+        fail("cost: this torch has no torch.testing._internal.distributed.fake_pg")
+        return []
+    out_dir = os.path.join(ROOT, "build", "dryrun_torch")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = []
+    for arch, shape in COST_CELLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--mesh", "pod", "--tag", "chip_smoke",
+             "--out", out_dir], cwd=ROOT, env=env, timeout=600,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        wall = time.perf_counter() - t0
+        path = os.path.join(out_dir, f"{arch}__{shape}__pod__chip_smoke.json")
+        rec = {}
+        if os.path.isfile(path):
+            with open(path) as f:
+                rec = json.load(f)
+        if proc.returncode != 0 or rec.get("status") != "ok":
+            fail(f"cost: dryrun {arch} x {shape} exited {proc.returncode}, "
+                 f"status {rec.get('status')}: {proc.stdout[-3000:]}")
+            out.append({"arch": arch, "shape": shape, "rc": proc.returncode,
+                        "record": rec, "tail": proc.stdout[-3000:]})
+            continue
+        c, m = rec["hlo_corrected"], rec["memory_analysis"]
+        if not all(math.isfinite(c[k]) and c[k] > 0
+                   for k in ("flops", "bytes", "collective_bytes")):
+            fail(f"cost: dryrun {arch} x {shape} counted {c}")
+        out.append({"arch": arch, "shape": shape, "status": rec["status"],
+                    "n_chips": rec["n_chips"], "step": rec["step"],
+                    "lower_s": rec["lower_s"], "compile_s": rec["compile_s"],
+                    "process_wall_s": wall, "flops": c["flops"],
+                    "bytes": c["bytes"], "collective_bytes": c["collective_bytes"],
+                    "collectives": {k: v for k, v in c.items() if k.startswith("coll_")},
+                    "argument_gb": m["argument_bytes"] / 1e9,
+                    "temp_gb": m["temp_bytes"] / 1e9,
+                    "param_count": rec["meta"]["param_count"]})
+    return out
+
+
+def cost_calibrate(out_root: str, device: str = "cuda") -> dict:
+    """(d) ``python -m repro_torch calibrate --oracle hlo`` of COST_MODEL on
+    ``H100-SXM`` with phase ``calibrate``'s sample counts; no kernel runs."""
+    entry_path = os.path.join(out_root, "entry.json")
+    os.makedirs(out_root, exist_ok=True)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = cli.main(["calibrate", "--model", COST_MODEL, "--hardware", "H100-SXM",
+                       "--oracle", "hlo", "--device", device,
+                       "--no-fidelity", "-o", out_root,
+                       "--train-samples", str(TRAIN_SAMPLES),
+                       "--eval-samples", str(EVAL_SAMPLES),
+                       "--label", "chip_smoke_hlo", "--entry-out", entry_path])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"cost: calibrate --oracle hlo exited with {rc}")
+        return {"rc": rc, "wall_s": wall}
+    if ops.launch_counts() != before:
+        fail("cost: calibrate --oracle hlo launched a kernel")
+    with open(entry_path) as f:
+        fidelity = json.load(f)["operators"]
+    return {"rc": rc, "wall_s": wall, "n_train": TRAIN_SAMPLES,
+            "n_eval": EVAL_SAMPLES, "fidelity": fidelity}
+
+
+def phase_cost(card: str, rows: dict, train_full: dict) -> None:
+    t0 = time.perf_counter()
+    for item, fn in (("counter", cost_counter),
+                     ("oracle", lambda: cost_oracle(rows)),
+                     ("train_step", lambda: cost_train(train_full)),
+                     ("dryrun", lambda: {"cells": cost_dryrun()}),
+                     ("calibrate", lambda: cost_calibrate(
+                         os.path.join(ROOT, "build", "calib_hlo")))):
+        t1 = time.perf_counter()
+        res = fn()
+        res["item_wall_s"] = time.perf_counter() - t1
+        say("cost", item=item, card=card, **res)
+        stop_if_failed("cost")
+        gc.collect()
+    say("cost", ok=not FAILURES, card=card, wall_s=time.perf_counter() - t0)
+    stop_if_failed("cost")
 
 
 def main(argv=None) -> int:
@@ -2075,8 +2395,9 @@ def main(argv=None) -> int:
     phase_refit(oracle, out_root, out2_root, af_fit1)
     phase_table2([out_root, out2_root])
     counts["wkv_chunked"] = phase_serve()["wkv_chunked"]
-    phase_train(card)
+    train_full = phase_train(card)
     counts["wkv_chunked"] += phase_shard(card)
+    phase_cost(card, rows, train_full)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],

@@ -359,12 +359,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--hardware", default="A800-SXM4-80G",
                    help="hardware preset to calibrate for")
     p.add_argument("--oracle", default="auto",
-                   choices=("kernelsim", "kernels", "auto"),
-                   help="ground-truth backend: kernelsim | kernels | auto "
-                        "(auto is kernels; it never steps down)")
+                   choices=("kernelsim", "kernels", "hlo", "auto"),
+                   help="ground-truth backend: kernelsim | kernels | hlo | "
+                        "auto (auto is kernels; it never steps down)")
     p.add_argument("--device", default="cuda",
                    help="where the kernels oracle runs: cuda (default) "
-                        "or cpu (times the plain versions)")
+                        "or cpu (times the plain versions); for hlo, the "
+                        "fake tensors' device")
     p.add_argument("--train-samples", type=int, default=600,
                    help="training grid size (default 600)")
     p.add_argument("--eval-samples", type=int, default=150,

@@ -1,7 +1,7 @@
 """Calibration & fidelity: close the sim-to-real loop.
 
 Measure per-operator latency against an oracle (the hand-written CUDA
-kernels, or the virtual-kernel simulator), fit the refined forest models,
+kernels, the virtual-kernel simulator, or the cost proxy), fit the refined forest models,
 persist them as versioned artifacts, load them into an
 ``ExecutionPredictor`` with ``load_calibrated_ops``, and track
 simulator-vs-oracle error as a trajectory (``FIDELITY_torch.json``).
@@ -22,15 +22,15 @@ from repro_torch.calib.grid import (
     build_grid, geometry_of, grouped_gemm_grid, moe_geometry_of,
 )
 from repro_torch.calib.oracle import (
-    ORACLES, KernelOracle, KernelSimOracle, Oracle,
+    ORACLES, HLOCostOracle, KernelOracle, KernelSimOracle, Oracle,
     default_oracle_name, resolve_oracle,
 )
 
 __all__ = [
     "ARTIFACT_VERSION", "AttentionSample", "CalibGrid",
     "CalibrationArtifact", "CalibrationError", "CalibrationResult",
-    "GroupedGemmSample", "KernelOracle", "KernelSimOracle", "ORACLES",
-    "Oracle", "append_fidelity", "artifact_path",
+    "GroupedGemmSample", "HLOCostOracle", "KernelOracle", "KernelSimOracle",
+    "ORACLES", "Oracle", "append_fidelity", "artifact_path",
     "attention_grid", "build_grid", "calibrate",
     "check_fidelity_regression", "default_oracle_name",
     "discover_artifacts", "entry_from_result", "geometry_of",

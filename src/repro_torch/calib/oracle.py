@@ -1,7 +1,7 @@
 """Operator-latency oracles — the ground truth calibration fits against.
 
 An ``Oracle`` answers "how long does this operator take on this hardware
-for this exact heterogeneous batch?" in seconds.  Two backends so far:
+for this exact heterogeneous batch?" in seconds.  Three backends:
 
 ``kernels``    timing of the hand-written CUDA kernels in ``kernels/ops.py``
                on the card (CUDA events, bf16 inputs, median of several
@@ -10,6 +10,12 @@ for this exact heterogeneous batch?" in seconds.  Two backends so far:
                much smaller shape limits.
 ``kernelsim``  the ``VirtualKernels`` tile-level simulator: deterministic,
                fast, models wave quantization and head/tile parallelism.
+``hlo``        cost proxy: the plain versions (``kernels/ref.py``) counted on
+               fake tensors by ``launch/hlo_cost.count`` (flops, bytes) and
+               priced on the hardware's roofline.  Torch has no HLO; the
+               name is the reference's.  Its bytes count eager ops unfused,
+               so on memory-bound shapes it prices above the reference's
+               (ROADMAP Queue C, "No HLO").
 
 ``resolve_oracle`` maps "auto" to ``kernels``.  It never looks for a GPU and
 steps down: ``kernels`` on ``device="cuda"`` without a CUDA device raises, and
@@ -225,9 +231,94 @@ class KernelOracle(Oracle):
         return self._cache[key]
 
 
+class HLOCostOracle(Oracle):
+    """Cost proxy: count the plain reference ops (``kernels/ref.py``) with
+    ``launch/hlo_cost.count`` on fake tensors (nothing is allocated on any
+    device) and price the flop/byte totals on the target hardware's
+    roofline, as the reference prices its compiled HLO.  Shapes are bucketed
+    and counts cached, as in the reference; shapes and dtype (f32) are the
+    reference's.  ``device`` is the fake tensors' device.
+    """
+
+    name = "hlo"
+
+    def __init__(self, hw: HardwareSpec, bucket: float = 1.25, device="cuda"):
+        self.hw = hw
+        self.bucket = bucket
+        self.device = device
+        self._cache: Dict[tuple, float] = {}
+
+    def limits(self) -> Dict[str, int]:
+        return {"max_len": 2048, "max_batch": 16, "max_tokens": 4096}
+
+    def _round(self, n: int) -> int:
+        if n <= 16:
+            return 16
+        b = 16
+        while b < n:
+            b = max(b + 16, int(b * self.bucket) // 16 * 16)
+        return b
+
+    def _price(self, fn: Callable, *specs) -> float:
+        from repro_torch.launch import hlo_cost
+        costs = hlo_cost.count(fn, *specs, device=self.device)
+        return max(costs["flops"] / self.hw.peak_flops,
+                   costs["bytes"] / self.hw.hbm_bw) + self.hw.op_overhead
+
+    def attention_prefill(self, q_lens, kv_lens, n_heads, n_kv_heads,
+                          head_dim, *, causal=True, window=0) -> float:
+        import torch
+        from repro_torch.kernels import ref
+        from repro_torch.models.common import TensorSpec
+        total = 0.0
+        for q_len, kv_len in zip(q_lens, kv_lens):
+            s, t = self._round(int(q_len)), self._round(int(kv_len))
+            key = ("prefill", s, t, n_heads, n_kv_heads, head_dim,
+                   causal, window)
+            if key not in self._cache:
+                q = TensorSpec((1, s, n_heads, head_dim), torch.float32)
+                k = TensorSpec((1, t, n_kv_heads, head_dim), torch.float32)
+                self._cache[key] = self._price(
+                    lambda q, k, v: ref.flash_attention_ref(
+                        q, k, v, causal=causal, window=window), q, k, k)
+            total += self._cache[key]
+        return total
+
+    def attention_decode(self, context_lens, n_heads, n_kv_heads, head_dim,
+                         *, window=0) -> float:
+        import torch
+        from repro_torch.kernels import ref
+        from repro_torch.models.common import TensorSpec
+        b = self._round(len(context_lens))
+        t = self._round(max(int(x) for x in context_lens))
+        key = ("decode", b, t, n_heads, n_kv_heads, head_dim, window)
+        if key not in self._cache:
+            q = TensorSpec((b, n_heads, head_dim), torch.float32)
+            k = TensorSpec((b, t, n_kv_heads, head_dim), torch.float32)
+            lengths = TensorSpec((b,), torch.int32)
+            self._cache[key] = self._price(ref.decode_attention_ref,
+                                           q, k, k, lengths)
+        return self._cache[key]
+
+    def grouped_gemm(self, tokens_per_expert, d_in, d_out) -> float:
+        import torch
+        from repro_torch.kernels import ref
+        from repro_torch.models.common import TensorSpec
+        e = len(tokens_per_expert)
+        cap = self._round(max(1, max(int(x) for x in tokens_per_expert)))
+        key = ("grouped", e, cap, d_in, d_out)
+        if key not in self._cache:
+            x = TensorSpec((e, cap, d_in), torch.float32)
+            w = TensorSpec((e, d_in, d_out), torch.float32)
+            sizes = TensorSpec((e,), torch.int32)
+            self._cache[key] = self._price(ref.grouped_gemm_ref, x, w, sizes)
+        return self._cache[key]
+
+
 ORACLES: Dict[str, type] = {
     "kernelsim": KernelSimOracle,
     "kernels": KernelOracle,
+    "hlo": HLOCostOracle,
 }
 
 

@@ -33,6 +33,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import _build
 
@@ -113,6 +114,34 @@ def _strides(x: torch.Tensor):
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
+def operations(B: int, T: int, H: int, hs: int, C: int) -> float:
+    """The kernel's f32 operations, as its roofline bound counts them: per
+    (b, h) and chunk, ``r_dec @ S`` and the state carry (C x hs x hs each),
+    the strictly lower intra-chunk ``r_dec k_dec^T`` and its product with v
+    (C(C-1)/2 x hs each), and the bonus."""
+    per_chunk = 4 * C * hs * hs + 2 * C * (C - 1) * hs + 4 * C * hs
+    return float(B * H * (T // C) * per_chunk)
+
+
+@torch.library.custom_op(
+    "repro_torch::wkv_chunked", mutates_args=(),
+    schema="(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor? state0, "
+           "int chunk, ScalarType out_dtype) -> (Tensor, Tensor)")
+def _wkv_op(r, k, v, w, u, state0, chunk, out_dtype):
+    """The kernel as one op, for fake tensors: a dry run dispatches it in the
+    kernel's place and its counter charges it as the kernel.  On real tensors
+    it is the wrapper."""
+    return wkv_chunked(r, k, v, w, u, chunk=chunk, state0=state0,
+                       return_state=True, out_dtype=out_dtype)
+
+
+@_wkv_op.register_fake
+def _wkv_op_fake(r, k, v, w, u, state0, chunk, out_dtype):
+    B, T, H, hs = r.shape
+    return (r.new_empty((B, T, H, hs), dtype=out_dtype),
+            r.new_empty((B, H, hs, hs), dtype=torch.float32))
+
+
 def wkv_chunked(r, k, v, w, u, *, chunk: int = 16,
                 state0: Optional[torch.Tensor] = None,
                 return_state: bool = False, out_dtype=None):
@@ -122,7 +151,9 @@ def wkv_chunked(r, k, v, w, u, *, chunk: int = 16,
 
     A CUDA tensor goes to the kernel (r/k/v f32 or bf16, w and the output
     either); a CPU tensor goes to the plain version.  A failed build or
-    launch raises.
+    launch raises.  A fake CUDA tensor (a dry run, ``FakeTensorMode``) goes
+    to the op ``repro_torch::wkv_chunked``, which runs nothing and gives the
+    outputs' shapes; no launch is counted.
     """
     if r.device.type == "cpu":
         return wkv_chunked_plain(r, k, v, w, u, chunk=chunk, state0=state0,
@@ -143,6 +174,10 @@ def wkv_chunked(r, k, v, w, u, *, chunk: int = 16,
         raise ValueError(f"wkv_chunked takes hs <= {MAX_HEAD_SIZE} and "
                          f"chunk <= {MAX_CHUNK}; got hs={hs}, chunk={C}")
     out_dtype = out_dtype or r.dtype
+    if is_fake(r):
+        y, state = torch.ops.repro_torch.wkv_chunked(r, k, v, w, u, state0, C,
+                                                     out_dtype)
+        return (y, state) if return_state else y
     codes = [_build.dtype_code(d) for d in (r.dtype, w.dtype, out_dtype)]
     r, k, v, w = (_strides(x) for x in (r, k, v, w))
     uf = u.to(device=r.device, dtype=torch.float32).contiguous()

@@ -4,22 +4,30 @@ Port of ``repro/launch/lowering.py``.  ``build_step(cfg, mesh, shape)``
 returns what one (architecture x input shape) step on a mesh needs, without
 allocating anything: the step callable, ``TensorSpec`` argument trees, trees
 of DTensor placements for each argument (the reference's ``NamedSharding``
-in-shardings), donation indices and ``meta``.  The reference's
-``lower_step`` (``jax.jit(...).lower``) has no torch counterpart yet; it
-comes with the dry run.
+in-shardings), donation indices and ``meta``.
+
+``lower_step(bundle, mesh)`` is the counterpart of ``jax.jit(...).lower``:
+it makes the arguments fake tensors (``FakeTensorMode``: nothing is
+allocated), each rank's own shard placed on the mesh with
+``DTensor.from_local``, and its ``.compile()`` runs the step once under
+``hlo_cost.Counter``.  ``Compiled.cost_analysis()`` gives the counter's
+per-device totals and ``memory_analysis()`` this rank's bytes.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.convert import place
+from repro_torch.launch import hlo_cost
 from repro_torch.models.common import (
-    AxisRules, TensorSpec, shape_tree, tree_leaves,
+    AxisRules, TensorSpec, shape_tree, tree_leaves, tree_map_with,
 )
 from repro_torch.models.model import build_model
 from repro_torch.training.optimizer import AdamW, AdamWConfig, make_train_step
@@ -133,3 +141,111 @@ def build_step(cfg: ModelConfig, mesh, shape: ShapeConfig, *,
         args=(params_sds, cache_sds, in_specs["tokens"], pos_sds),
         in_shardings=(params_sh, cache_sh, tok_sh, pos_sh),
         donate_argnums=(1,), model=model, meta=meta)
+
+
+@dataclass
+class MemoryAnalysis:
+    """One rank's bytes, the fields of the reference's ``memory_analysis()``
+    record.  ``temp_bytes`` is the peak of bytes held by storages the step
+    created, while they were alive (the counter's ``peak_bytes``).  Eager
+    torch generates no code, so ``generated_code_bytes`` is ``None``."""
+    argument_bytes: int
+    output_bytes: int
+    alias_bytes: int
+    temp_bytes: int
+    generated_code_bytes: Optional[int] = None
+
+
+class Compiled:
+    """A step run once on fake tensors: ``cost_analysis()``, the counter's
+    per-device totals; ``memory_analysis()``; ``kernels``, the calls of each
+    hand-written kernel's op."""
+
+    def __init__(self, costs: Dict[str, float], memory: MemoryAnalysis,
+                 kernels: Dict[str, int]):
+        self._costs, self._memory, self.kernels = costs, memory, kernels
+
+    def cost_analysis(self) -> Dict[str, float]:
+        return dict(self._costs)
+
+    def memory_analysis(self) -> MemoryAnalysis:
+        return self._memory
+
+
+def _local_bytes(tree) -> int:
+    """This rank's bytes of the tensors in ``tree``, each storage once."""
+    seen, n = set(), 0
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            local = t.to_local() if isinstance(t, DTensor) else t
+            st = local.untyped_storage()
+            if id(st) not in seen:
+                seen.add(id(st))
+                n += st.nbytes()
+    return n
+
+
+class Lowered:
+    """``bundle``'s arguments as fake tensors on ``device``, placed on the
+    mesh; ``compile()`` runs the step.
+
+    An integer scalar argument (decode's position) is the Python int 0: the
+    step reads its value (``int(pos)``) and a fake tensor has none.  No
+    count depends on it; its 4 bytes stay in ``argument_bytes``."""
+
+    def __init__(self, bundle: StepBundle, mesh, device):
+        if (bundle.name == "train_step" and torch.device(device).type == "cuda"
+                and not torch.backends.cuda.is_built()):
+            raise RuntimeError(
+                "a train step on fake CUDA tensors needs torch built with CUDA "
+                "(autograd asks the CUDA device guard); this torch is CPU "
+                "only: pass device='cpu'")
+        self.bundle = bundle
+        self.mode = hlo_cost.fake_mode()
+        self.arg_bytes = [0] * len(bundle.args)   # this rank's, per argument
+
+        def fake(i, spec, pl):
+            local = _local_shape(spec.shape, pl, mesh)
+            self.arg_bytes[i] += math.prod(local) * spec.dtype.itemsize
+            if spec.shape == () and not spec.dtype.is_floating_point:
+                return 0
+            t = torch.empty(local, dtype=spec.dtype, device=device)
+            if mesh is None:
+                return t
+            stride = torch.empty(spec.shape, dtype=spec.dtype, device="meta").stride()
+            return DTensor.from_local(t, mesh, pl, run_check=False,
+                                      shape=torch.Size(spec.shape), stride=stride)
+        with self.mode:
+            self.args = tuple(
+                tree_map_with(functools.partial(fake, i), a, sh)
+                for i, (a, sh) in enumerate(zip(bundle.args, bundle.in_shardings)))
+
+    def compile(self) -> Compiled:
+        b = self.bundle
+        with self.mode:
+            with hlo_cost.Counter() as counter:
+                out = b.fn(*self.args)
+        memory = MemoryAnalysis(
+            argument_bytes=sum(self.arg_bytes), output_bytes=_local_bytes(out),
+            alias_bytes=sum(self.arg_bytes[i] for i in b.donate_argnums),
+            temp_bytes=counter.peak_bytes)
+        return Compiled(counter.totals(), memory, dict(counter.kernels))
+
+
+def _local_shape(shape, placements, mesh) -> list:
+    """Rank 0's shard of ``shape``: the first chunk of each split dim, as
+    ``torch.chunk`` deals them."""
+    local = list(shape)
+    if mesh is not None:
+        for pl, n in zip(placements, mesh.shape):
+            if isinstance(pl, Shard):
+                local[pl.dim] = -(-local[pl.dim] // n)
+    return local
+
+
+def lower_step(bundle: StepBundle, mesh, device="cuda") -> Lowered:
+    """The counterpart of ``jax.jit(bundle.fn, in_shardings=...).lower``:
+    fake arguments on ``device`` ("cuda", the default, needs no card: a
+    fake CUDA tensor is metadata), each rank's shard placed by
+    ``bundle.in_shardings``.  Nothing is scattered or allocated."""
+    return Lowered(bundle, mesh, device)

@@ -8,8 +8,9 @@ call the Pallas attention kernels, and neither does the port.
 
 TP mapping (megatron-style over the "model" mesh axis), as the reference's:
 train/prefill replicate KV heads ``rep = tp/gcd(K, tp)`` times so the q-head
-axis shards evenly (replicated attention when H itself does not divide);
-decode shards the KV cache over (batch -> data, seq -> model).
+axis shards evenly (replicated attention when H itself does not divide), each
+rank projecting only the heads it holds; decode shards the KV cache over
+(batch -> data, seq -> model) and each rank attends over its own slots.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
@@ -82,10 +84,21 @@ def _proj(x, w):
     return torch.einsum("bsd,dhk->bshk", x, w)
 
 
+def _proj_kv(x, p, ax: AxisRules, rep: int):
+    """x (B,S,D) -> k/v (B,S,K*rep,hd): each KV head repeated ``rep`` times
+    (``kv_replication``); when it is, split over "model" as
+    ``AxisRules.shared_product`` projects them."""
+    if rep == 1:
+        return _proj(x, p["wk"]), _proj(x, p["wv"])
+    return tuple(ax.shared_product("bsd,dhk->bshk", x, p[w], rep) for w in ("wk", "wv"))
+
+
 def _project_qkv(cfg: ModelConfig, p, x, positions, ax: AxisRules,
-                 rope: bool = True):
-    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,K,hd) with qk_norm + RoPE."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+                 rope: bool = True, rep: int = 1):
+    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,K*rep,hd) with qk_norm + RoPE
+    (``_proj_kv``)."""
+    q = _proj(x, p["wq"])
+    k, v = _proj_kv(x, p, ax, rep)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps, zero_centered=True)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps, zero_centered=True)
@@ -177,23 +190,19 @@ def attention_train(cfg: ModelConfig, p, x, ax: AxisRules, *,
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rep = kv_replication(cfg, ax)   # KV heads replicated across TP ranks
     if memory is None:
-        q, k, v = _project_qkv(cfg, p, x, positions, ax)
+        q, k, v = _project_qkv(cfg, p, x, positions, ax, rep=rep)
         k_pos = positions
     else:
         # cross-attention: q from x, k/v from encoder memory; no RoPE on q/k
         q = ax.constrain(_proj(x, p["wq"]), "batch", None, "heads", None)
-        k, v = _proj(memory, p["wk"]), _proj(memory, p["wv"])
+        k, v = _proj_kv(memory, p, ax, rep)
         Tm = memory.shape[1]
         k_pos = (memory_positions if memory_positions is not None
                  else torch.arange(Tm, device=x.device).expand(B, Tm))
         causal, window = False, 0
-
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    rep = kv_replication(cfg, ax)
-    if rep > 1:  # replicate KV heads across TP ranks
-        k = torch.repeat_interleave(k, rep, dim=2)
-        v = torch.repeat_interleave(v, rep, dim=2)
     Kr = K * rep
     kv_axis = "heads" if Kr % ax.model_size() == 0 else None
     k = ax.constrain(k, "batch", None, kv_axis, None)
@@ -267,6 +276,36 @@ def attention_decode(cfg: ModelConfig, p, x, cache: Dict[str, torch.Tensor],
                       kv_axes=("batch", None, "heads", None))
         return o.reshape(B, H, hd)
 
+    def attend_split(q, ck, cv, bias):
+        # the cache split over "model" on its slots (the reference's
+        # "kv_seq"), as GSPMD partitions attend: each rank scores its slots
+        # for every head, and the softmax's max and sums, and the output,
+        # are reduced over "model"; the cache never moves
+        group = ax.mesh.get_group(ax.model_axis)
+
+        def core(qg, ck, cv, bias):
+            s = torch.einsum("bkgd,btkd->bkgt", qg, ck).float() * scale
+            if cfg.attn_logit_softcap:
+                s = softcap(s, cfg.attn_logit_softcap)
+            s = s + (bias[:, None, None, :] if bias.ndim == 2 else bias[None, None, None, :])
+            m = s.amax(dim=-1, keepdim=True).detach()
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+            e = torch.exp(s - m)
+            pr = (e / ax.sum_over(e.sum(dim=-1, keepdim=True), ax.model_axis)).to(cv.dtype)
+            o = torch.einsum("bkgt,btkd->bkgd", pr, cv)
+            return ax.sum_over(o.float(), ax.model_axis).to(cv.dtype)
+
+        def pl(t, *axes):
+            return ax.placements(ax.resolve(axes, t.shape))
+        qg = ax.constrain(q, "batch", None, None).reshape(B, K, H // K, hd)
+        q_pl = pl(qg, "batch", None, None, None)
+        b_pl = pl(bias, *(("batch",) if bias.ndim == 2 else ()), "kv_seq")
+        kv_pl = pl(ck, "batch", "kv_seq", None, None)
+        o = local_map(core, out_placements=(q_pl,),
+                      in_placements=(q_pl, kv_pl, kv_pl, b_pl),
+                      redistribute_inputs=True)(qg, ck, cv, ax.replicated(bias))
+        return o.reshape(B, H, hd)
+
     if memory_kv is not None:  # cross-attention: cache is static memory KV
         q = _proj(x, p["wq"])[:, 0]
         ck, cv = memory_kv
@@ -303,6 +342,7 @@ def attention_decode(cfg: ModelConfig, p, x, cache: Dict[str, torch.Tensor],
     hit = ax.replicated(hit)
     ck = ax.constrain(torch.where(hit, k_new, ck), "batch", "kv_seq", None, None)
     cv = ax.constrain(torch.where(hit, v_new, cv), "batch", "kv_seq", None, None)
-    o = attend(q, ck, cv, _bias(valid))
+    split = ax.model_size() > 1 and ax.resolve(("batch", "kv_seq"), ck.shape[:2])[1]
+    o = (attend_split if split else attend)(q, ck, cv, _bias(valid))
     y = torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None, :]
     return ax.constrain(y, "batch", None, "embed"), {"k": ck, "v": cv}

@@ -258,11 +258,18 @@ class AxisRules:
     def constrain(self, x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
         """Redistribute to the logical axes' placements (the reference's
         ``with_sharding_constraint``); a no-op without a mesh.  A plain
-        tensor is taken as the same on every rank (``replicated``)."""
+        tensor is taken as the same on every rank (``replicated``).
+
+        The backward sums a ``Partial`` gradient to the same placements
+        (JAX's constraint binds the cotangent too; megatron's pair of region
+        operators).  Without it DTensor lets the residual stream's gradient
+        stay ``Partial`` (the vocab-sharded head leaves it so), and every
+        product of a TP region's backward that meets it gathers its sharded
+        operand and runs whole on every rank."""
         if self.mesh is None:
             return x
-        return self.replicated(x).redistribute(
-            self.mesh, self.placements(self.resolve(axes, x.shape)))
+        return _Constrain.apply(self.replicated(x),
+                                self.placements(self.resolve(axes, x.shape)))
 
     def grad_placements(self, placements: Sequence, tokens: Sequence) -> tuple:
         """The gradient's placements for a ``local_map`` input of
@@ -271,6 +278,30 @@ class AxisRules:
         the input is replicated and the tokens are split, else unchanged."""
         return tuple(Partial() if isinstance(p, Replicate) and isinstance(t, Shard)
                      else p for p, t in zip(placements, tokens))
+
+    def shared_product(self, eq: str, x: torch.Tensor, w: torch.Tensor,
+                       rep: int = 1) -> torch.Tensor:
+        """``torch.einsum(eq, x, w)`` of an ``x`` replicated over "model" and
+        a replicated weight ``w`` (``eq`` contracts x's last dim with w's
+        first), partitioned as GSPMD partitions the reference's product.
+
+        With ``rep`` > 1, w's dim 1 indexes heads that the output repeats
+        ``rep`` times each (``repeat_interleave``) and splits over "model":
+        each rank projects only the heads it holds, where DTensor would
+        project them all and slice.  The weight's gradient, alike on every
+        "model" rank, is computed for 1/tp of w's first dim on each and
+        gathered, where DTensor would compute it whole on each.  Without a
+        mesh it is the plain product."""
+        if self.mesh is None or self.model_size() == 1:
+            y = torch.einsum(eq, x, w)
+            return y if rep == 1 else torch.repeat_interleave(
+                y, rep, dim=_head_dim(eq))
+        x = self.replicated(x)
+        mi = self.mesh.mesh_dim_names.index(self.model_axis)
+        x_pl = tuple(Replicate() if i == mi else p for i, p in enumerate(x.placements))
+        x = x.redistribute(self.mesh, x_pl)
+        w = self.replicated(w).redistribute(self.mesh, (Replicate(),) * self.mesh.ndim)
+        return _SharedProduct.apply(x, w, eq, rep, mi)
 
     # -- collectives inside a ``local_map`` body -----------------------------
     # c10d's stable calls under autograd functions that state their own
@@ -289,6 +320,82 @@ class AxisRules:
         goes to rank j, and the chunks received come back in rank order.  It
         is its own transpose, so the backward is the same exchange."""
         return _AllToAll.apply(x, self.mesh.get_group(axis))
+
+
+class _Constrain(torch.autograd.Function):
+    """``x`` redistributed to ``placements``; a ``Partial`` gradient summed
+    to them."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if any(p.is_partial() for p in grad.placements):
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad, None
+
+
+def _head_dim(eq: str) -> int:
+    """The output dim of ``eq`` that w's dim 1 (its heads) becomes."""
+    ins, out = eq.split("->")
+    return out.index(ins.split(",")[1][1])
+
+
+class _SharedProduct(torch.autograd.Function):
+    """``AxisRules.shared_product`` on DTensors: ``x`` replicated over mesh
+    dim ``mi`` (and split on its batch dims elsewhere), ``w`` replicated."""
+
+    @staticmethod
+    def forward(ctx, x, w, eq, rep, mi):
+        mesh = x.device_mesh
+        tp, m = mesh.size(mi), mesh.get_local_rank(mi)
+        xl, wl = x.to_local(), w.to_local()
+        y_pl = list(x.placements)
+        if rep > 1:
+            # the heads this rank holds, of K * rep split over tp ranks
+            per = wl.shape[1] * rep // tp
+            idx = torch.arange(m * per, (m + 1) * per, device=wl.device) // rep
+            wl = wl.index_select(1, idx)
+            y_pl[mi] = Shard(_head_dim(eq))
+        ctx.save_for_backward(xl, wl)
+        ctx.meta = (eq, rep, mi, tp, m, x.placements, tuple(y_pl), w.shape)
+        y = torch.einsum(eq, xl, wl)
+        return DTensor.from_local(y, mesh, y_pl, run_check=False)
+
+    @staticmethod
+    def backward(ctx, gy):
+        xl, wl = ctx.saved_tensors
+        eq, rep, mi, tp, m, x_pl, y_pl, w_shape = ctx.meta
+        mesh = gy.device_mesh
+        ins, out = eq.split("->")
+        xs, ws = ins.split(",")
+        if tuple(gy.placements) != y_pl:
+            gy = gy.redistribute(mesh, y_pl)
+        gl = gy.to_local()
+        gx = torch.einsum(f"{out},{ws}->{xs}", gl, wl)
+        gx_pl = list(x_pl)
+        if rep > 1:     # each rank's heads give part of x's gradient
+            gx_pl[mi] = Partial()
+            full = list(y_pl)
+            full[mi] = Replicate()
+            gl = gy.redistribute(mesh, full).to_local()
+            h = _head_dim(eq)
+            gl = gl.unflatten(h, (w_shape[1], rep)).sum(h + 1)
+        # the weight's gradient: 1/tp of w's first dim on each rank, summed
+        # over the batch dims the ranks split, then gathered over "model"
+        D = xl.shape[-1]
+        gw_pl = [Partial() if p.is_shard() else Replicate() for p in x_pl]
+        if D % tp == 0:
+            xl = xl[..., m * D // tp:(m + 1) * D // tp]
+            gw_pl[mi] = Shard(0)
+        gw = DTensor.from_local(torch.einsum(f"{xs},{out}->{ws}", xl, gl), mesh,
+                                gw_pl, run_check=False)
+        gw_pl[mi] = Replicate()
+        return (DTensor.from_local(gx, mesh, gx_pl, run_check=False),
+                gw.redistribute(mesh, gw_pl), None, None, None)
 
 
 class _SumOverRanks(torch.autograd.Function):

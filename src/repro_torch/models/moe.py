@@ -78,7 +78,9 @@ def _slots(keys, n: int, cap: int):
     A = keys.shape[0]
     order = torch.sort(keys, stable=True).indices
     s_key = keys[order]
-    counts = torch.bincount(keys, minlength=n + 1)[:n]
+    # bincount with its length fixed (keys lie in [0, n]), so the shape
+    # does not depend on the data (a fake tensor has none)
+    counts = keys.new_zeros(n + 1).scatter_add_(0, keys, torch.ones_like(keys))[:n]
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(A, device=keys.device) - starts[torch.clamp_max(s_key, n - 1)]
     valid = (s_key < n) & (pos < cap)

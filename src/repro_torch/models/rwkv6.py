@@ -62,7 +62,7 @@ def _shifted(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def _tm_project(cfg: ModelConfig, p, x, xz):
+def _tm_project(cfg: ModelConfig, p, x, xz, ax: AxisRules):
     """Compute r,k,v,g,w streams from x and shifted xz.  All (B,T,...)."""
     B, T, d = x.shape
     hs = cfg.rwkv_head_size
@@ -78,7 +78,12 @@ def _tm_project(cfg: ModelConfig, p, x, xz):
     v = (lerp(2) @ p["wv"]).reshape(B, T, H, hs)
     g = F.silu(lerp(3) @ p["wg"])
     wx = lerp(4).float()
-    dec = p["w0"].float() + torch.tanh(wx @ p["w_a"].float()) @ p["w_b"].float()
+    # the decay's last product on each rank's heads, as r/k/v/g (GSPMD
+    # splits it so, following the heads it feeds; w_b is replicated); its
+    # input stays replicated over "model", its gradient summed there
+    lora = torch.tanh(ax.shared_product("btd,dl->btl", wx, p["w_a"].float()))
+    lora = ax.constrain(lora, "batch", None, None)
+    dec = p["w0"].float() + lora @ ax.constrain(p["w_b"].float(), None, "heads")
     w = torch.exp(-torch.exp(dec)).reshape(B, T, H, hs)   # in (0,1)
     return r, k, v, g, w
 
@@ -99,7 +104,7 @@ def timemix_apply(cfg: ModelConfig, p, x, ax: AxisRules, *,
     hs = cfg.rwkv_head_size
     H = d // hs
     xz = _shifted(x, prev_shift)
-    r, k, v, g, w = _tm_project(cfg, p, x, xz)
+    r, k, v, g, w = _tm_project(cfg, p, x, xz, ax)
     u = p["u"].float().reshape(H, hs)
     state0 = prev_state.float()
 
@@ -140,8 +145,12 @@ def _wkv(r, k, v, w, u, state0, ax: AxisRules, *, impl: str, chunk: int = 16):
     streams = ax.placements(ax.resolve(("batch", None, "heads", None), r.shape))
     heads = ax.placements(ax.resolve(("heads", None), u.shape))
     states = ax.placements(ax.resolve(("batch", "heads", None, None), state0.shape))
+    # u is replicated over the batch axes, and each rank's body sees only
+    # its rows: u's gradient there is a sum still owed
     return local_map(run, out_placements=(streams, states),
                      in_placements=(streams,) * 4 + (heads, states),
+                     in_grad_placements=(streams,) * 4 + (
+                         ax.grad_placements(heads, streams), states),
                      redistribute_inputs=True)(
         r, k, v, w, ax.replicated(u), ax.replicated(state0))
 
@@ -171,7 +180,7 @@ def timemix_decode(cfg: ModelConfig, p, x, ax: AxisRules, *,
     hs = cfg.rwkv_head_size
     H = d // hs
     xz = prev_shift[:, None, :]
-    r, k, v, g, w = _tm_project(cfg, p, x, xz)
+    r, k, v, g, w = _tm_project(cfg, p, x, xz, ax)
     u = p["u"].float().reshape(H, hs)
     y, state = _wkv(r, k, v, w, u, prev_state.float(), ax, impl="scan")
     y = _headnorm(cfg, p, y, B, 1, d).to(x.dtype) * g

@@ -128,8 +128,9 @@ def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _storage(t: torch.Tensor) -> int:
-    return (t.to_local() if isinstance(t, DTensor) else t).data_ptr()
+def _storage(t: torch.Tensor) -> tuple:
+    local = t.to_local() if isinstance(t, DTensor) else t
+    return local.untyped_storage()._cdata, local.storage_offset()
 
 
 def make_train_step(model, optimizer: AdamW):

@@ -16,7 +16,8 @@ Cases: the reference's four (the sharded ZeRO-1 train step, the MoE
 ``shard_map`` bodies, elastic checkpoint resharding, ``build_step``), plus
 TPFF, the vocab-sharded embedding and its fallback, ``launch.train.run`` on a
 mesh with a resumed checkpoint, and sharded prefill and decode of every
-architecture family against the same model unsharded.
+architecture family against the same model unsharded; in the threaded
+world, the gradients of three families on (2, 4) against unsharded.
 """
 import dataclasses
 import os
@@ -35,6 +36,7 @@ ROOT = Path(__file__).resolve().parent.parent
 WORLD_TIMEOUT_S = 400
 MOE_EP = dict(num_experts=8, top_k=2, expert_d_ff=32, capacity_factor_train=8.0)
 MOE_TPFF = dict(num_experts=2, top_k=1, expert_d_ff=32, capacity_factor_train=8.0)
+GRAD_ARCHS = ("yi-9b", "mixtral-8x7b", "rwkv6-1.6b")
 FAMILIES = ["yi-9b", "gemma2-27b", "mixtral-8x7b", "kimi-k2-1t-a32b",
             "recurrentgemma-2b", "rwkv6-1.6b", "pixtral-12b",
             "seamless-m4t-large-v2"]
@@ -371,6 +373,8 @@ def _threaded_main(out_dir):
         "threaded_reshard": lambda: chip_smoke.shard_reshard(
             get_config("yi-9b", smoke=True), (4,), (2, 2), "cpu",
             str(Path(out_dir) / "ckpt")),
+        "threaded_grads": lambda: chip_smoke.shard_grads(
+            GRAD_ARCHS, (2, 4), 4, 32, "cpu"),
     }
     for name, fn in runs.items():
         try:
@@ -644,6 +648,18 @@ def test_sharded_prefill_and_decode_match_single_device(worlds, arch):
     res = worlds.result("8", "families")[arch]
     assert res["scale"] > 0
     assert max(res["errs"]) <= 2e-5 * max(res["scale"], 1.0), res
+
+
+@pytest.mark.parametrize("arch", GRAD_ARCHS)
+def test_sharded_gradients_match_single_device(worlds, arch):
+    """chip_smoke's phase-``shard`` run (e) in the threaded world: one loss
+    within 1e-5 and every gradient within 1e-4 of its largest of the
+    unsharded model's, on (2, 4), where yi-9b and mixtral-8x7b repeat their
+    2 KV heads over 4 ranks (``AxisRules.shared_product``) and rwkv6-1.6b
+    splits its decay LoRA and takes ``u``'s gradient from each rank's rows."""
+    res = worlds.result("threaded", "threaded_grads")
+    row = {r["arch"]: r for r in res["archs"]}[arch]
+    assert row["loss_rel"] <= 1e-5 and row["grad_rel"] <= 1e-4, res
 
 
 def test_train_run_on_a_mesh(worlds):
