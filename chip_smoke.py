@@ -16,7 +16,8 @@ every layer, and train yi-9b at full width (``repro_torch.launch.train``, a
 path that launches no kernel: none has a backward), run the sharded path at
 full width in a threaded world of ranks on the one card, and cost steps and
 production meshes without running them (``repro_torch.launch.dryrun``, the
-``hlo`` oracle).  Phases,
+``hlo`` oracle), and run the twins of the examples (``examples_torch/``),
+held to what the reference prints.  Phases,
 one JSON line each (``simulate``, ``table2`` one per run or cell and one for the phase):
 
 1. ``env``        the card as ``nvidia-smi`` names it, torch and CUDA versions
@@ -133,11 +134,28 @@ one JSON line each (``simulate``, ``table2`` one per run or cell and one for the
                   (1, 4) worlds, each count equal to the CPU's
                   (``COUNTER_CELLS``).  Every cell and count must be finite
                   and positive, and no kernel may launch
+13. ``examples``  the twins of ``examples/`` (``examples_torch/``): (a) the ten
+                  simulation twins, each run as ``__main__`` by ``runpy`` in
+                  a directory of its own, stdout equal to
+                  ``expected/<name>.txt`` (wall clock masked); (b) ``python -m repro_torch run`` of
+                  the eight specs that need no artifacts, each report's
+                  ``stable_view`` hash equal to ``expected/specs.json``; (c)
+                  ``calibration_study.py --smoke`` equal to its expected
+                  file, then ``--oracle kernels`` at full width (600 / 150
+                  samples) through the twin's ``main``: both attention
+                  kernels launched, the grouped GEMM never (qwen2-7b is
+                  dense), every MAPE and summary finite; (d)
+                  ``serve_real_model.py`` on the card: finite, positive
+                  measured and predicted tok/s beside the card's name; (e)
+                  ``train_lm.py`` (100m): 200 straight steps, and 100 + 100
+                  by the same command resumed from step 100, the last loss
+                  within 2e-4 of the straight run's, finite and falling
 
 Any failing phase makes the exit code non-zero.  There is no CPU path: without
 a CUDA device the script fails.  The line before the card's name lists every
-kernel with its launches on its path (``calibrate`` for the three it prices,
-``serve`` and ``shard`` for ``wkv_chunked``), error, time, plain version's
+kernel with its launches on its path (``calibrate`` for the three it prices
+and ``examples`` (c) for the two attention kernels, ``serve`` and ``shard``
+for ``wkv_chunked``), error, time, plain version's
 time, roofline bound and a library call's time; the last line is the verdict.
 """
 from __future__ import annotations
@@ -146,14 +164,20 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import hashlib
+import importlib.util
+import io
 import json
 import math
 import os
+import re
+import runpy
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -381,6 +405,13 @@ def bound(ops_count: float, nbytes: float, dtype):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def src_env() -> dict:
+    """This environment with the port's ``src/`` first on ``PYTHONPATH``,
+    for the subprocesses the phases start."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
 
 
 # ------------------------------------------------------------------ phases --
@@ -891,9 +922,12 @@ def sim_spec(name: str, opmodel: dict) -> dict:
 
 
 def stable_view(rep: dict) -> str:
-    """tests/test_determinism.py::_stable_view of a saved report."""
+    """tests/test_determinism.py::_stable_view of a saved report; a fleet
+    report's instances, tenants and scale events stand in for clusters."""
+    parts = (("clusters",) if "clusters" in rep
+             else ("instances", "tenants", "scale_events"))
     return json.dumps({"summary": rep["summary"], "hash": rep["spec_hash"],
-                       "clusters": rep["clusters"],
+                       **{k: rep[k] for k in parts},
                        "conservation": rep["conservation"],
                        "events": rep["sim_events"]}, sort_keys=True)
 
@@ -1599,8 +1633,7 @@ def train_resume(out_dir: str) -> dict:
     manifest holding the last loss), against a straight 20-step run."""
     ck = os.path.join(out_dir, "ckpt")
     shutil.rmtree(ck, ignore_errors=True)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    env = src_env()
     logs = []
     for extra in (["--steps", "10", "--ckpt-every", "10"],
                   ["--steps", "10", "--ckpt-every", "10", "--resume"]):
@@ -2180,8 +2213,7 @@ def counter_cells(device: str = "cuda") -> dict:
 def cost_counter() -> dict:
     """(e) COUNTER_CELLS counted in a subprocess (a process group of its
     own) and held exactly to the CPU's counts."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    env = src_env()
     prog = ("import json, logging, chip_smoke; logging.getLogger("
             "'torch.distributed.tensor._redistribute').setLevel(logging.ERROR); "
             "print('COUNTS', json.dumps([[list(k), v] for k, v in "
@@ -2291,8 +2323,7 @@ def cost_dryrun() -> list:
         return []
     out_dir = os.path.join(ROOT, "build", "dryrun_torch")
     shutil.rmtree(out_dir, ignore_errors=True)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    env = src_env()
     out = []
     for arch, shape in COST_CELLS:
         t0 = time.perf_counter()
@@ -2373,6 +2404,258 @@ def phase_cost(card: str, rows: dict, train_full: dict) -> None:
     stop_if_failed("cost")
 
 
+# ---------------------------------------------------------------- examples --
+# Phase ``examples``: the twins of examples/ in examples_torch/, held to what
+# the reference prints on the CPU (examples_torch/expected/, written once from
+# the reference; tests/test_torch_examples_*.py hold all three equal there).
+EXAMPLES_DIR = os.path.join(ROOT, "examples_torch")
+EXPECTED_DIR = os.path.join(EXAMPLES_DIR, "expected")
+EXAMPLES_SIM = ("quickstart", "fault_tolerance_study", "fleet_capacity_study",
+                "heterogeneous_cost_study", "heterogeneous_topology",
+                "memory_pressure_study", "moe_af_simulation", "pareto_sweep",
+                "pipelining_study", "trace_study")
+EXAMPLE_SPECS = ("af_moe", "closed_loop", "fabric", "fleet", "memory",
+                 "pipelining", "quickstart", "trace")   # calibration needs a fit
+# The one wall-clock field the deterministic examples print (quickstart's
+# "in 0.41s wall clock"); the expected files hold it masked.
+WALL_CLOCK = re.compile(r"(?<= in )\d+\.\d+(?=s wall clock)")
+TRAIN_EXAMPLE_STEPS = 200   # train_lm.py's default; resumed as 100 + 100
+
+
+def mask_wall_clock(text: str) -> str:
+    return WALL_CLOCK.sub("X.XX", text)
+
+
+def expected_text(name: str) -> str:
+    with open(os.path.join(EXPECTED_DIR, f"{name}.txt")) as f:
+        return f.read()
+
+
+def first_difference(got: str, want: str) -> str:
+    for i, (g, w) in enumerate(zip(got.splitlines(), want.splitlines())):
+        if g != w:
+            return f"line {i + 1}: {g!r} != {w!r}"
+    return f"{len(got.splitlines())} lines != {len(want.splitlines())}"
+
+
+def example_dir(name: str) -> str:
+    """A fresh working directory for one twin, under build/examples/."""
+    path = os.path.join(ROOT, "build", "examples", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def run_twin(name: str, argv: list, cwd: str) -> tuple:
+    """``python examples_torch/<name>.py argv`` in a subprocess; returns its
+    exit code, stdout and wall seconds (stderr to the log beside it)."""
+    env = src_env()
+    t0 = time.perf_counter()
+    with open(os.path.join(ROOT, "build", "examples", f"{name}.stderr.log"), "a") as err:
+        proc = subprocess.run(
+            [sys.executable, os.path.join(EXAMPLES_DIR, f"{name}.py"), *argv],
+            cwd=cwd, env=env, timeout=600, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
+def examples_sim() -> dict:
+    """(a) Each simulation twin run as ``__main__`` (``runpy``, one interpreter
+    for all ten: a process of its own each cost the phase about 2 s a twin),
+    its stdout held to the reference's.  trace_study prints its artifacts'
+    path relative to the working directory, so it runs from the repo root
+    (its artifacts land in artifacts/, as the reference's do); the others
+    each from a fresh directory.  A twin that raises, as one importing yaml
+    does here, fails the phase with its traceback."""
+    walls = {}
+    here, argv = os.getcwd(), sys.argv
+    for name in EXAMPLES_SIM:
+        path = os.path.join(EXAMPLES_DIR, f"{name}.py")
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            os.chdir(ROOT if name == "trace_study" else example_dir(name))
+            sys.argv = [path]
+            with contextlib.redirect_stdout(text):
+                runpy.run_path(path, run_name="__main__")
+        except Exception:   # a failing twin is recorded; the next one runs
+            fail(f"examples: {name} raised: {traceback.format_exc()[-2000:]}")
+            continue
+        finally:
+            os.chdir(here)
+            sys.argv = argv
+            walls[name] = time.perf_counter() - t0
+        got = mask_wall_clock(text.getvalue())
+        if got != expected_text(name):
+            fail(f"examples: {name} printed other than the reference: "
+                 f"{first_difference(got, expected_text(name))}")
+    return {"wall_s": walls}
+
+
+def examples_specs() -> dict:
+    """(b) ``python -m repro_torch run`` of each spec; the report's
+    ``stable_view`` hashed and held to the reference's."""
+    with open(os.path.join(EXPECTED_DIR, "specs.json")) as f:
+        want = json.load(f)
+    out_dir = example_dir("specs")
+    walls = {}
+    for name in EXAMPLE_SPECS:
+        path = os.path.join(EXAMPLES_DIR, "specs", f"{name}.json")
+        with open(path) as f:
+            base = json.load(f)["name"]
+        t0 = time.perf_counter()
+        rc, rep = cli_report(["run", path, "-o", out_dir], out_dir, base)
+        walls[name] = time.perf_counter() - t0
+        digest = (hashlib.sha256(stable_view(rep).encode()).hexdigest()
+                  if rep else None)
+        if rc != 0 or digest != want[name]["stable_view_sha256"]:
+            fail(f"examples: spec {name} exited with {rc}, stable_view "
+                 f"sha256 {digest} != the reference's")
+    return {"wall_s": walls}
+
+
+def load_twin(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_calibration() -> dict:
+    """(c) calibration_study: ``--smoke`` (kernelsim) held to the reference's
+    stdout, then ``--oracle kernels`` at full width on the card through the
+    twin's ``main`` into build/calib_examples/, its fit and runs kept as it
+    makes them."""
+    mod = load_twin("calibration_study")
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = mod.main(["--smoke", "--out", example_dir("calib_smoke")])
+    smoke_s = time.perf_counter() - t0
+    got = mask_wall_clock(text.getvalue())
+    if rc != 0 or got != expected_text("calibration_study"):
+        fail(f"examples: calibration_study --smoke exited with {rc} or printed "
+             f"other than the reference: "
+             f"{first_difference(got, expected_text('calibration_study'))}")
+
+    made = {"fit": [], "runs": []}
+
+    def keep(fn, into):
+        def kept(*args, **kwargs):
+            into.append(fn(*args, **kwargs))
+            return into[-1]
+        return kept
+    mod.calibrate = keep(mod.calibrate, made["fit"])
+    mod.run = keep(mod.run, made["runs"])
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    out_root = os.path.join(ROOT, "build", "calib_examples")
+    shutil.rmtree(out_root, ignore_errors=True)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = mod.main(["--oracle", "kernels", "--out", out_root])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v - before.get(k, 0) for k, v in ops.launch_counts().items()}
+    if rc != 0 or len(made["fit"]) != 1 or len(made["runs"]) != 2:
+        fail(f"examples: calibration_study --oracle kernels exited with {rc}")
+        return {"smoke_s": smoke_s, "wall_s": wall, "launches": launches}
+    for name in ("flash_attention", "decode_attention"):
+        if launches.get(name, 0) <= 0:
+            fail(f"examples: calibration_study never launched {name}")
+    if launches.get("grouped_gemm", 0) != 0:
+        fail("examples: calibration_study launched the grouped GEMM "
+             "(qwen2-7b is dense)")
+    mape = {f"{op}.{fam}": stats["mape"]
+            for op, fams in made["fit"][0].fidelity.items()
+            for fam, stats in fams.items() if "mape" in stats}
+    keys = ("ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "throughput_tok_s")
+    summary = {label: {k: rep.summary.get(k) for k in keys}
+               for label, rep in zip(("analytical", "fitted"), made["runs"])}
+    values = list(mape.values()) + [v for s in summary.values() for v in s.values()]
+    if not mape or not all(isinstance(v, (int, float)) and math.isfinite(v)
+                           for v in values):
+        fail(f"examples: calibration_study gave non-finite MAPE or summary: "
+             f"{mape} {summary}")
+    return {"smoke_s": smoke_s, "wall_s": wall, "launches": launches,
+            "mape": mape, "summary": summary,
+            "table": text.getvalue().splitlines()}
+
+
+def examples_serve() -> dict:
+    """(d) serve_real_model on the card (its default device)."""
+    card_name = torch.cuda.get_device_name(0)
+    rc, out, wall = run_twin("serve_real_model", [], example_dir("serve_real_model"))
+    tok_s = [float(x) for x in re.findall(r"throughput\s+(\S+) tok/s", out)]
+    if (rc != 0 or len(tok_s) != 2
+            or not all(math.isfinite(x) and x > 0 for x in tok_s)
+            or card_name not in out):
+        fail(f"examples: serve_real_model exited with {rc}, tok/s {tok_s}, "
+             f"card named {card_name in out}: {out[-2000:]}")
+    return {"wall_s": wall, "measured_tok_s": tok_s[:1],
+            "predicted_tok_s": tok_s[1:], "stdout": out.splitlines()}
+
+
+def examples_train() -> dict:
+    """(e) train_lm (100m) on the card: 200 straight steps, and 100 + 100 by
+    the same command resumed; the last losses read from the step-200
+    checkpoints' manifests."""
+    half = str(TRAIN_EXAMPLE_STEPS // 2)
+    straight_dir, resume_dir = example_dir("train_straight"), example_dir("train_resume")
+    runs = [run_twin("train_lm", ["--steps", str(TRAIN_EXAMPLE_STEPS),
+                                  "--ckpt-dir", "ckpt"], straight_dir)]
+    for _ in range(2):
+        runs.append(run_twin("train_lm", ["--steps", half, "--ckpt-dir", "ckpt"],
+                             resume_dir))
+    if any(rc != 0 for rc, _, _ in runs):
+        fail(f"examples: train_lm exited with {[rc for rc, _, _ in runs]}: "
+             f"{[out[-1000:] for _, out, _ in runs]}")
+        return {"wall_s": [w for _, _, w in runs]}
+    if f"resumed from step {half}" not in runs[2][1]:
+        fail(f"examples: the second train_lm run did not resume from step {half}")
+    last = {}
+    for label, cwd in (("straight", straight_dir), ("resumed", resume_dir)):
+        with open(os.path.join(cwd, "ckpt", f"step_{TRAIN_EXAMPLE_STEPS:08d}",
+                               "manifest.json")) as f:
+            last[label] = json.load(f)["extra"]["loss"]
+    logged = [float(x) for x in re.findall(r"^step\s+\d+ loss (\S+)", runs[0][1], re.M)]
+    if not logged or not all(math.isfinite(x) for x in logged + list(last.values())):
+        fail(f"examples: train_lm losses not finite: {logged} {last}")
+    elif not last["straight"] < logged[0]:
+        fail(f"examples: train_lm loss did not fall: {logged[0]} -> "
+             f"{last['straight']}")
+    diff = abs(last["resumed"] - last["straight"])
+    if not diff <= RESUME_TOL * (1 + abs(last["straight"])):
+        fail(f"examples: resumed loss {last['resumed']!r} != straight run's "
+             f"{last['straight']!r}")
+    return {"wall_s": [w for _, _, w in runs], "first_loss": logged[0],
+            "last_loss": last, "diff": diff,
+            "tok_s_line": [line for line in runs[0][1].splitlines()
+                           if line.startswith("step")][-1]}
+
+
+def phase_examples(card: str) -> dict:
+    """Phase ``examples``; returns the attention kernels' launches in (c)."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build", "examples"), exist_ok=True)
+    launches = {}
+    for item, fn in (("sim", examples_sim), ("specs", examples_specs),
+                     ("calibration", examples_calibration),
+                     ("serve", examples_serve),
+                     ("train", examples_train)):
+        t1 = time.perf_counter()
+        res = fn()
+        res["item_wall_s"] = time.perf_counter() - t1
+        launches.update(res.get("launches", {}))
+        say("examples", item=item, card=card, **res)
+        stop_if_failed("examples")
+        gc.collect()
+    say("examples", ok=not FAILURES, card=card, wall_s=time.perf_counter() - t0)
+    stop_if_failed("examples")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ptxas", action="store_true",
@@ -2398,6 +2681,8 @@ def main(argv=None) -> int:
     train_full = phase_train(card)
     counts["wkv_chunked"] += phase_shard(card)
     phase_cost(card, rows, train_full)
+    for name, n in phase_examples(card).items():
+        counts[name] = counts.get(name, 0) + n
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": counts[name],

@@ -12,9 +12,9 @@ the single declarative front door to the simulator:
                    workload=WorkloadSpec(n_requests=200, rate=12.0))
     report = repro_torch.api.run(spec)
 
-or, from YAML::
+or, from JSON (the card's machine has no PyYAML)::
 
-    report = repro_torch.api.run(SimSpec.load("examples/specs/quickstart.yaml"))
+    report = repro_torch.api.run(SimSpec.load("examples_torch/specs/quickstart.json"))
 
 Everything in a spec is data (names, numbers, lists) so specs hash
 (`spec_hash`), pickle across process pools (`repro_torch.api.sweep`), and diff

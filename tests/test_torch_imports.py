@@ -7,6 +7,9 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
+# The examples' twins run on the card's machine, which has no PyYAML.
+EXAMPLE_FILES = sorted((ROOT / "examples_torch").glob("*.py"))
+EXAMPLE_FORBIDDEN = FORBIDDEN | {"yaml"}
 
 
 def _imported_roots(path: Path):
@@ -29,6 +32,13 @@ def test_port_has_files():
 def test_no_import_of_jax_or_reference(path):
     bad = [(name, line) for name, line in _imported_roots(path)
            if name in FORBIDDEN]
+    assert not bad, f"{path}: forbidden imports {bad}"
+
+
+@pytest.mark.parametrize("path", EXAMPLE_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_example_twin_imports_no_jax_reference_or_yaml(path):
+    bad = [(name, line) for name, line in _imported_roots(path)
+           if name in EXAMPLE_FORBIDDEN]
     assert not bad, f"{path}: forbidden imports {bad}"
 
 
