@@ -69,21 +69,32 @@ one JSON line each (``simulate``, ``table2`` one per run or cell and one for the
                   attention kernels); then each cell of ``TABLE2`` (qwen2-7b
                   at full width, mixtral-8x7b at 16 of its 32 layers; bf16,
                   random weights) measured on ``MiniEngine`` (a warm pass,
-                  then the measured one; every request must complete with
-                  its tokens) and predicted eight ways: analytical on the
+                  which captures its CUDA graphs, then the measured one;
+                  every request must complete with its tokens), each
+                  qwen2-7b cell and mixtral-8x7b's first also with
+                  ``eager=True``, in turns, the graphed tokens equal to
+                  the eager ones; predicted from the graphed measurement
+                  eight ways: analytical on the
                   ``H100-SXM`` preset and on ``measure_hardware``, refined
                   from each of two fits, each with the measured decode floor
                   as ``engine_overhead`` and with the predictor's default.
                   Every prediction completes every request with finite
                   summaries, and a refined one repeats byte for byte.  No
-                  gate on the error: it is a reading.
+                  gate on the error: it is a reading.  Then the device's
+                  idle share over 10 steady decode steps of qwen2-7b at
+                  batch 4, graphed and eager, by ``torch.profiler``
 9. ``serve``      rwkv6-1.6b, random weights from a seed: (a) f32 prefill of
                   one 2048-token prompt through the kernel and through the
                   plain sequential recurrence, logits and every layer's state
                   within 2e-3; (b) bf16 ``MiniEngine`` with 4 slots serving 6
-                  requests (a warm pass, then a measured one): the kernel must
-                  be launched once per layer per prefill, and every request's
-                  tokens must equal a greedy loop over the model's own
+                  requests (a warm pass, then a measured one) from its CUDA
+                  graphs, the kernel replayed in every prefill graph: its
+                  launches, counted at each replay, must be one per layer
+                  per prefill and equal an eager engine's and, in one more
+                  graphed prefill, the WKV6 kernels ``torch.profiler`` sees
+                  on the card; the tokens must
+                  equal the eager engine's, and every request's tokens must
+                  equal a greedy loop over the model's own
                   ``prefill``/``decode``
 10. ``train``     yi-9b at full width in f32, random weights from a seed:
                   (a) one ``make_train_step`` of one layer on 1 x 128
@@ -92,10 +103,12 @@ one JSON line each (``simulate``, ``table2`` one per run or cell and one for the
                   gradients within 1e-4 of its largest, and the card's AdamW
                   on the CPU's gradients within 1e-5 of the CPU's step
                   (``train_parity``); (b) ``repro_torch.launch.train.run``
-                  of 8 layers, 12 steps of 2 x 4096 tokens, ``remat="full"``:
-                  finite losses, the last below the first, no kernel
+                  of 8 layers, 12 steps of 2 x 4096 tokens, ``remat="full"``,
+                  the step replayed from its CUDA graph after three eager
+                  steps: finite losses, the last below the first, no kernel
                   launched, read as step ms, tok/s, model TFLOP/s and peak
-                  memory; (c) ``python -m repro_torch.launch.train`` of
+                  memory, beside 4 eager steps whose losses must equal the
+                  graphed run's; (c) ``python -m repro_torch.launch.train`` of
                   qwen3-8b's smoke geometry in a subprocess, 10 steps and a
                   checkpoint, then 10 resumed steps: the last loss within
                   2e-4 of a straight 20-step run (tests/test_training.py's
@@ -149,7 +162,9 @@ one JSON line each (``simulate``, ``table2`` one per run or cell and one for the
                   measured and predicted tok/s beside the card's name; (e)
                   ``train_lm.py`` (100m): 200 straight steps, and 100 + 100
                   by the same command resumed from step 100, the last loss
-                  within 2e-4 of the straight run's, finite and falling
+                  equal to the straight run's to the bit, finite and
+                  falling; then its step in this process for 20 steps,
+                  graphed and eager, the losses equal to the bit
 
 Any failing phase makes the exit code non-zero.  There is no CPU path: without
 a CUDA device the script fails.  The line before the card's name lists every
@@ -212,7 +227,7 @@ from repro_torch.serving.engine import MiniEngine  # noqa: E402
 from repro_torch.training import checkpoint as ckpt  # noqa: E402
 from repro_torch.training.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.training.optimizer import (  # noqa: E402
-    AdamW, AdamWConfig, make_train_step)
+    GRAPH_WARMUP, AdamW, AdamWConfig, make_train_step)
 
 # The main path's own sizes: the oracle's accelerator limits and a sample count
 # that keeps the whole script well inside its time limit.
@@ -333,6 +348,9 @@ TABLE2 = {  # model: (layers kept, None for all; cells (batch, prompt, output))
     "mixtral-8x7b": (16, ((4, 512, 64), (8, 256, 64))),
 }
 TABLE2_MAX_SEQ = 1024
+# The device's idle share: qwen2-7b at full width, 4 slots of 128-token
+# prompts, read over 10 steady decode steps (``decode_idle_share``).
+IDLE_ARCH, IDLE_BATCH, IDLE_PROMPT, IDLE_STEPS = "qwen2-7b", 4, 128, 10
 
 FAILURES = []
 
@@ -1261,6 +1279,121 @@ def summary_of(rep: dict) -> dict:
         "tpot_p50_s", "n_completed")}
 
 
+def measure_cell(cfg, batch: int, prompt: int, output: int, eager: bool) -> dict:
+    """One Table 2 cell measured by ``launch.serve.measure``, on the engine's
+    CUDA graphs or (``eager``) uncaptured."""
+    gc.collect()                 # a graphed engine is freed by the collector
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    measured, floor, reqs = serve_launch.measure(
+        cfg, batch=batch, prompt_len=prompt, output_len=output,
+        max_seq=TABLE2_MAX_SEQ, seed=0, device="cuda", dtype=torch.bfloat16,
+        eager=eager)
+    return {"measured": measured, "floor": floor,
+            "line": {key: measured[key] for key in (
+                "throughput_tok_s", "ttft_mean_s", "tpot_mean_s", "duration_s",
+                "decode_steps", "output_tokens")},
+            "tokens": [r.tokens for r in reqs],
+            "measure_s": time.perf_counter() - t1,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def first_differences(got: list, want: list) -> list:
+    """(request, first differing position) of each request whose tokens
+    differ; position -1 where the lengths differ."""
+    return [(i, next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), -1)
+             if len(a) == len(b) else -1)
+            for i, (a, b) in enumerate(zip(got, want)) if a != b]
+
+
+def _union_us(spans: list) -> float:
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def decode_idle_share(cfg, eager: bool) -> dict:
+    """The device's idle share over IDLE_STEPS steady decode steps of a
+    bf16 ``MiniEngine`` (a graph captured and replayed, or eager), read by
+    ``torch.profiler``: one minus the union of the device's kernel and copy
+    intervals over the window's wall time.  Each step ends in a synchronise
+    and the host's argmax.
+
+    Beside it, in the same engine: CUDA events around each step's call of
+    the decode step (the graph's replay, or the eager ops) give that call's
+    device span, from its first device work to its last, in an unprofiled
+    window and in the profiled one.  One minus their sum over the wall time
+    is the share of the wall outside the decode call's device span, not an
+    idle share: an eager span holds the device's gaps between the kernels
+    the host dispatches.  The profiled spans show what tracing adds inside
+    a replay, where the host takes no part."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = MiniEngine(cfg, max_slots=IDLE_BATCH, max_seq=TABLE2_MAX_SEQ, seed=0,
+                     dtype=torch.bfloat16, eager=eager)
+    rng = np.random.default_rng(0)
+    eng.submit([rng.integers(0, cfg.vocab_size, IDLE_PROMPT)
+                for _ in range(IDLE_BATCH)], IDLE_PROMPT)
+    spans, step = [], eng._decode
+
+    def timed():
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = step()
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    def window() -> tuple:
+        """(wall us, the decode calls' device spans in ms)"""
+        spans.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(IDLE_STEPS):
+            eng._decode_step()
+        wall = (time.perf_counter() - t0) * 1e6
+        return wall, [a.elapsed_time(b) for a, b in spans]
+
+    def outside(wall_us: float, span_ms: list) -> dict:
+        return {"window_ms_per_step": wall_us / IDLE_STEPS / 1e3,
+                "decode_call_device_span_ms": {"min": min(span_ms),
+                                               "median": statistics.median(span_ms)},
+                "share_of_wall_outside_decode_call_span":
+                    1.0 - sum(span_ms) * 1e3 / wall_us}
+    with torch.no_grad():
+        eng._admit()
+        for _ in range(5):                   # the first captures the graph
+            eng._decode_step()
+        eng._decode = timed
+        plain = outside(*window())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_us, span_ms = window()
+        t1 = time.perf_counter()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in device])
+        by_name = {}
+        for e in device:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    del eng, prof
+    return {"idle_share": 1.0 - busy_us / wall_us if device else None,
+            "profiled": {
+                **outside(wall_us, span_ms),
+                "device_events": len(device),
+                "device_busy_ms_per_step": busy_us / IDLE_STEPS / 1e3,
+                "top_device_ms_per_step": {k[:80]: v / IDLE_STEPS / 1e3
+                                           for k, v in top},
+                "post_s": time.perf_counter() - t1},
+            "unprofiled": plain}
+
+
 def phase_table2(mixtral_roots: list) -> None:
     """Table 2 on the card (``TABLE2``): each cell measured on ``MiniEngine``
     (``launch.serve.measure``: a warm pass, then the measured one) and
@@ -1288,19 +1421,24 @@ def phase_table2(mixtral_roots: list) -> None:
                                                 ops=o), o)["colocated"]
             for name, (hw, o) in profiles.items() if o is not None}
         for k, (batch, prompt, output) in enumerate(grid):
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            t1 = time.perf_counter()
-            measured, floor, reqs = serve_launch.measure(
-                cfg, batch=batch, prompt_len=prompt, output_len=output,
-                max_seq=TABLE2_MAX_SEQ, seed=0, device="cuda",
-                dtype=torch.bfloat16)
-            measure_s = time.perf_counter() - t1
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
             cell = f"{arch} b{batch} p{prompt} o{output}"
-            if [len(r.tokens) for r in reqs] != [output] * batch:
-                fail(f"table2 {cell}: tokens {[len(r.tokens) for r in reqs]}")
+            # graphed (the default) and eager in turns; mixtral's second
+            # cell graphed only
+            modes = (("graphed", "eager") if arch == "qwen2-7b" or k == 0
+                     else ("graphed",))
+            runs = {mode: measure_cell(cfg, batch, prompt, output,
+                                       eager=mode == "eager")
+                    for mode in (modes[::-1] if k % 2 else modes)}
+            for mode, run in runs.items():
+                if [len(t) for t in run["tokens"]] != [output] * batch:
+                    fail(f"table2 {cell} {mode}: tokens "
+                         f"{[len(t) for t in run['tokens']]}")
+            equal = (runs["eager"]["tokens"] == runs["graphed"]["tokens"]
+                     if "eager" in runs else None)
+            if equal is False:
+                fail(f"table2 {cell}: graphed tokens differ from eager ones at "
+                     f"{first_differences(runs['graphed']['tokens'], runs['eager']['tokens'])}")
+            measured, floor = runs["graphed"]["measured"], runs["graphed"]["floor"]
             preds = {}
             t1 = time.perf_counter()
             for name, (hw, o) in profiles.items():
@@ -1328,13 +1466,21 @@ def phase_table2(mixtral_roots: list) -> None:
                      for name, (hw, o) in profiles.items()}
             say("table2_cell", model=arch, layers=len(cfg.pattern), batch=batch,
                 prompt=prompt, output=output, max_seq=TABLE2_MAX_SEQ,
-                measured={key: measured[key] for key in (
-                    "throughput_tok_s", "ttft_mean_s", "tpot_mean_s",
-                    "duration_s", "decode_steps", "output_tokens")},
-                decode_floor_s=floor, peak_mem_gb=peak_gb,
-                measure_s=measure_s, predict_s=time.perf_counter() - t1,
+                measured=runs["graphed"]["line"], decode_floor_s=floor,
+                peak_mem_gb=runs["graphed"]["peak_mem_gb"],
+                measure_s=runs["graphed"]["measure_s"],
+                eager=({key: runs["eager"][key] for key in (
+                    "line", "floor", "peak_mem_gb", "measure_s")}
+                    if "eager" in runs else None),
+                tokens_equal_eager=equal,
+                order=list(runs), predict_s=time.perf_counter() - t1,
                 predicted=preds, mid_decode_step_ms=parts)
         stop_if_failed("table2")
+    idle = {mode: decode_idle_share(get_config(IDLE_ARCH), eager=mode == "eager")
+            for mode in ("graphed", "eager")}
+    say("table2_idle", model=IDLE_ARCH, batch=IDLE_BATCH, prompt=IDLE_PROMPT,
+        steps=IDLE_STEPS, **idle)
+    stop_if_failed("table2")
     say("table2", ok=not FAILURES, wall_s=time.perf_counter() - t0, cells=cells,
         hardware={"H100-SXM preset": dataclasses.asdict(H100_SXM),
                   "measured card": dataclasses.asdict(card_hw)},
@@ -1436,6 +1582,43 @@ def serve_parity(cfg) -> dict:
             "logits_finite": bool(torch.isfinite(free_logits).all())}
 
 
+def serve_engine(cfg, prompts, eager: bool) -> tuple:
+    """(b)'s engine: a warm pass, then the measured one with the launches
+    counted from zero.  Returns the engine, the measured requests, report
+    (with the measured pass's step log) and launches, and the init s."""
+    t0 = time.perf_counter()
+    eng = MiniEngine(cfg, max_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, seed=0,
+                     dtype=torch.bfloat16, options=SERVE_OPTIONS, eager=eager)
+    init_s = time.perf_counter() - t0
+    eng.submit(prompts, SERVE_NEW)
+    eng.run()                                   # warm pass: captures
+    eng.step_log.clear()
+    ops.reset_launch_counts()
+    reqs = eng.submit(prompts, SERVE_NEW)
+    report = eng.run()                          # measured pass
+    torch.cuda.synchronize()
+    report["step_log"] = list(eng.step_log)
+    return eng, reqs, report, ops.launch_counts(), init_s
+
+
+def wkv_in_one_prefill(eng, prompt) -> dict:
+    """One more request of ``prompt`` on ``eng`` (a prefill, which replays
+    its bucket's graph, and one decode step) under ``torch.profiler``: the
+    ``wkv_chunked`` launches the replay counted, and the WKV6 kernels the
+    card ran, as the profiler saw them inside the graph."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    before = ops.launch_counts()["wkv_chunked"]
+    eng.submit([prompt], 1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.run()
+        torch.cuda.synchronize()
+    return {"counted": ops.launch_counts()["wkv_chunked"] - before,
+            "profiled": sum(1 for e in prof.events()
+                            if e.device_type == DeviceType.CUDA
+                            and "wkv_chunk_kernel" in e.name)}
+
+
 def phase_serve() -> dict:
     cfg = get_config(SERVE_ARCH)
     torch.cuda.reset_peak_memory_stats()        # this phase's own peak
@@ -1444,21 +1627,17 @@ def phase_serve() -> dict:
     torch.cuda.empty_cache()
     stop_if_failed("serve")
 
-    # (b) bf16 MiniEngine with the kernel on the prefill path
-    t0 = time.perf_counter()
-    eng = MiniEngine(cfg, max_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ, seed=0,
-                     dtype=torch.bfloat16, options=SERVE_OPTIONS)
-    init_s = time.perf_counter() - t0
+    # (b) bf16 MiniEngine with the kernel on the prefill path: its CUDA
+    # graphs (the default; the prefills replay the WKV6 kernel), then eager
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_PROMPTS]
-    eng.submit(prompts, SERVE_NEW)
-    eng.run()                                   # warm pass
-    eng.step_log.clear()
-    ops.reset_launch_counts()
-    reqs = eng.submit(prompts, SERVE_NEW)
-    report = eng.run()                          # measured pass
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    eng, reqs, report, counts, init_s = serve_engine(cfg, prompts, eager=False)
+    _, eager_reqs, eager_report, eager_counts, _ = serve_engine(cfg, prompts,
+                                                                eager=True)
+    gc.collect()
+    if [r.tokens for r in reqs] != [r.tokens for r in eager_reqs]:
+        fail(f"serve: graphed tokens differ from eager ones at "
+             f"{first_differences([r.tokens for r in reqs], [r.tokens for r in eager_reqs])}")
 
     prefills = [s for s in eng.step_log if s["kind"] == "prefill"]
     decodes = [s["dur"] for s in eng.step_log if s["kind"] == "decode"]
@@ -1466,6 +1645,9 @@ def phase_serve() -> dict:
     if len(prefills) != len(SERVE_PROMPTS) or counts["wkv_chunked"] != want:
         fail(f"serve: {len(prefills)} prefills launched wkv_chunked "
              f"{counts['wkv_chunked']} times, not {len(cfg.pattern)} each")
+    if eager_counts["wkv_chunked"] != counts["wkv_chunked"]:
+        fail(f"serve: replays counted {counts['wkv_chunked']} wkv_chunked "
+             f"launches, the eager engine {eager_counts['wkv_chunked']}")
     mismatched = []
     with torch.no_grad():
         for req in reqs:
@@ -1477,12 +1659,33 @@ def phase_serve() -> dict:
                                    "first_difference": at})
     if mismatched:
         fail(f"serve: engine tokens differ from the greedy loop: {mismatched}")
+    # the replays' count is the wrappers' at capture: hold it once to the
+    # kernels the card ran in a replay
+    with torch.no_grad():
+        on_device = wkv_in_one_prefill(eng, prompts[0])
+    if not on_device["counted"] == on_device["profiled"] == len(cfg.pattern):
+        fail(f"serve: one graphed prefill counted {on_device['counted']} "
+             f"wkv_chunked launches and the profiler saw "
+             f"{on_device['profiled']} WKV6 kernels, not {len(cfg.pattern)}")
     say("serve", ok=not FAILURES, arch=SERVE_ARCH, layers=len(cfg.pattern),
         d_model=cfg.d_model, vocab=cfg.vocab_size, options=SERVE_OPTIONS,
         parity_f32=parity, dtype="bf16", slots=SERVE_SLOTS,
         max_seq=SERVE_MAX_SEQ, prompts=list(SERVE_PROMPTS),
         new_tokens=SERVE_NEW, engine_init_s=init_s,
         launches=counts, greedy_equal=not mismatched,
+        graphed={"decode_captured": eng._decode.captured,
+                 "wkv_in_one_prefill": on_device,
+                 "prefill_buckets_captured": sorted(
+                     b for b, (_, st) in eng._prefills.items() if st.captured)},
+        eager={"launches": eager_counts,
+               "tokens_equal_graphed": [r.tokens for r in reqs]
+               == [r.tokens for r in eager_reqs],
+               "decode_floor_s": min(s["dur"] for s in eager_report["step_log"]
+                                     if s["kind"] == "decode"),
+               **{key: eager_report[key] for key in (
+                   "throughput_tok_s", "ttft_mean_s", "tpot_mean_s",
+                   "duration_s")}},
+        decode_floor_s=min(decodes),
         throughput_tok_s=report["throughput_tok_s"],
         ttft_mean_s=report["ttft_mean_s"], tpot_mean_s=report["tpot_mean_s"],
         decode_steps=report["decode_steps"], duration_s=report["duration_s"],
@@ -1507,6 +1710,7 @@ TOL_TRAIN_LOSS_REL, TOL_TRAIN_GRAD_REL, TOL_TRAIN_PARAM = 1e-5, 1e-4, 1e-5
 RESUME_ARGS = ["--arch", "qwen3-8b", "--seq-len", "32", "--global-batch", "2",
                "--seed", "7", "--log-every", "100"]
 RESUME_TOL = 2e-4
+TRAIN_EAGER_STEPS = 4                # (b)'s eager steps, beside the graphed run
 
 
 def train_step_on(device: str, cfg, host_params, batch) -> tuple:
@@ -1592,9 +1796,22 @@ def model_flops(cfg, tokens: int, seq_len: int, batch: int) -> float:
     return 6 * n * tokens + attn
 
 
+def steady_ms(step_s: list, eager: bool) -> dict:
+    """Step ms of a ``launch.train.run``: the first step, the warm-up steps
+    of a graphed run (the last of them also captures), and the steady ones
+    (replays, or every eager step after the first)."""
+    warm = 1 if eager else GRAPH_WARMUP
+    steady = step_s[warm:]
+    return {"mean": statistics.fmean(steady) * 1e3, "min": min(steady) * 1e3,
+            "max": max(steady) * 1e3, "first": step_s[0] * 1e3,
+            "warmup": [x * 1e3 for x in step_s[1:warm]]}
+
+
 def train_full_width(card: str) -> dict:
     """(b) ``launch.train.run`` of yi-9b at full width, TRAIN_RUN's layers and
-    steps: finite losses, the last below the first, and no kernel launched."""
+    steps, replayed from its CUDA graph: finite losses, the last below the
+    first, and no kernel launched; then TRAIN_EAGER_STEPS eager steps from the
+    same weights, their losses equal to the graphed run's first ones."""
     before = ops.launch_counts()
     torch.cuda.reset_peak_memory_stats()
     with contextlib.redirect_stdout(sys.stderr):       # its log lines
@@ -1609,22 +1826,37 @@ def train_full_width(card: str) -> dict:
              f"{ops.launch_counts()} against {before}")
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_RUN["layers"])
     tokens = TRAIN_RUN["seq_len"] * TRAIN_RUN["global_batch"]
-    first_s, steady = out["step_s"][0], out["step_s"][1:]
-    step_s = statistics.fmean(steady)
+    step_ms = steady_ms(out["step_s"], eager=False)
+    step_s = step_ms["mean"] / 1e3
     flops = model_flops(cfg, tokens, TRAIN_RUN["seq_len"], TRAIN_RUN["global_batch"])
     n_params = sum(p.numel() for p in tree_leaves(out["params"]))
     del out
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(sys.stderr):
+        eager = train_launch.run(TRAIN_ARCH, device="cuda", log_every=1,
+                                 eager=True, **dict(TRAIN_RUN, steps=TRAIN_EAGER_STEPS))
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_equal = eager["losses"] == losses[:TRAIN_EAGER_STEPS]
+    if not eager_equal:
+        fail(f"train: eager losses {eager['losses']} differ from the graphed "
+             f"run's {losses[:TRAIN_EAGER_STEPS]}")
+    eager_ms = steady_ms(eager["step_s"], eager=True)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"card": card, "arch": TRAIN_ARCH, **TRAIN_RUN, "dtype": "f32",
-            "params": n_params, "losses": losses,
-            "step_ms": {"mean": step_s * 1e3, "min": min(steady) * 1e3,
-                        "max": max(steady) * 1e3, "first": first_s * 1e3},
+            "params": n_params, "losses": losses, "graphed": True,
+            "step_ms": step_ms,
             "tokens_per_s": tokens / step_s,
             "model_tflop_per_step": flops / 1e12,
             "model_tflop_s": flops / step_s / 1e12,
             "flops_formula": "6*N*B*S + 12*L*B*S^2*H*hd, N = matmul weights",
-            "peak_mem_gb": peak / 1e9}
+            "peak_mem_gb": peak / 1e9,
+            "eager": {"steps": TRAIN_EAGER_STEPS, "step_ms": eager_ms,
+                      "losses_equal_graphed": eager_equal,
+                      "peak_mem_gb": eager_peak / 1e9}}
 
 
 def train_resume(out_dir: str) -> dict:
@@ -1654,7 +1886,7 @@ def train_resume(out_dir: str) -> dict:
     if not abs(resumed - straight) <= RESUME_TOL * (1 + abs(straight)):
         fail(f"train: resumed loss {resumed!r} != straight run's {straight!r}")
     return {"resumed_last_loss": resumed, "straight_last_loss": straight,
-            "diff": abs(resumed - straight)}
+            "diff": abs(resumed - straight), "bit_equal": resumed == straight}
 
 
 def phase_train(card: str) -> dict:
@@ -2420,6 +2652,7 @@ EXAMPLE_SPECS = ("af_moe", "closed_loop", "fabric", "fleet", "memory",
 # "in 0.41s wall clock"); the expected files hold it masked.
 WALL_CLOCK = re.compile(r"(?<= in )\d+\.\d+(?=s wall clock)")
 TRAIN_EXAMPLE_STEPS = 200   # train_lm.py's default; resumed as 100 + 100
+TRAIN_LM_STEPS = 20         # train_lm's step timed in-process, graphed and eager
 
 
 def mask_wall_clock(text: str) -> str:
@@ -2626,13 +2859,35 @@ def examples_train() -> dict:
         fail(f"examples: train_lm loss did not fall: {logged[0]} -> "
              f"{last['straight']}")
     diff = abs(last["resumed"] - last["straight"])
-    if not diff <= RESUME_TOL * (1 + abs(last["straight"])):
+    if last["resumed"] != last["straight"]:       # graphed both: to the bit
         fail(f"examples: resumed loss {last['resumed']!r} != straight run's "
              f"{last['straight']!r}")
     return {"wall_s": [w for _, _, w in runs], "first_loss": logged[0],
             "last_loss": last, "diff": diff,
             "tok_s_line": [line for line in runs[0][1].splitlines()
-                           if line.startswith("step")][-1]}
+                           if line.startswith("step")][-1],
+            "step_ms": train_lm_steps()}
+
+
+def train_lm_steps() -> dict:
+    """train_lm's step (its arguments, TRAIN_LM_STEPS steps) in this process,
+    graphed and eager: step ms, and the losses equal to the bit."""
+    out = {}
+    for mode in ("graphed", "eager"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = train_launch.run("yi-9b", size="100m", steps=TRAIN_LM_STEPS,
+                                   seq_len=256, global_batch=4, lr=3e-4,
+                                   log_every=1000, device="cuda",
+                                   eager=mode == "eager")
+        out[mode] = {"step_ms": steady_ms(res["step_s"], eager=mode == "eager"),
+                     "losses": res["losses"]}
+    out["losses_equal"] = out["graphed"]["losses"] == out["eager"]["losses"]
+    if not out["losses_equal"]:
+        fail(f"examples: train_lm's graphed losses {out['graphed']['losses']} "
+             f"differ from eager {out['eager']['losses']}")
+    return out
 
 
 def phase_examples(card: str) -> dict:

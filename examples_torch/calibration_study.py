@@ -28,7 +28,7 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced geometry + grid (CI)")
     ap.add_argument("--oracle", default="kernelsim")
-    ap.add_argument("--out", default="artifacts/calib")
+    ap.add_argument("--out", default="artifacts/calib_torch")
     ap.add_argument("--device", default="cuda",
                     help="where the oracle and the runs go; nothing steps down")
     args = ap.parse_args(argv)

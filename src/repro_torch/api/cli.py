@@ -265,7 +265,7 @@ def _cmd_list(args: argparse.Namespace) -> int:
         "memory managers": sorted(MEMORY),
         "operator models": sorted(OPMODELS),
         "oracle backends": sorted(ORACLES) + ["auto"],
-        "calibration artifacts (artifacts/calib)": arts or ["(none found)"],
+        "calibration artifacts (artifacts/calib_torch)": arts or ["(none found)"],
         "pipeline presets": sorted(PIPELINES),
     }
     want = getattr(args, "what", None)
@@ -376,8 +376,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         "limit)")
     p.add_argument("--max-batch", type=int, default=None,
                    help="cap sampled batch sizes (default: oracle limit)")
-    p.add_argument("-o", "--out", default=os.path.join("artifacts", "calib"),
-                   help="artifact root (default artifacts/calib/); "
+    p.add_argument("-o", "--out", default=os.path.join("artifacts", "calib_torch"),
+                   help="artifact root (default artifacts/calib_torch/, the "
+                        "port's own: the reference reads artifacts/calib); "
                         "artifacts land under <out>/<hardware>/")
     p.add_argument("--fidelity", default="FIDELITY_torch.json",
                    help="fidelity trajectory to append to "

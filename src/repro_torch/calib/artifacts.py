@@ -1,6 +1,7 @@
 """Fitted-model artifacts: serialization, provenance, discovery, loading.
 
-Layout: ``artifacts/calib/<hardware>/<operator>.json`` — one fitted
+Layout: ``artifacts/calib_torch/<hardware>/<operator>.json`` (the port's
+own root; the reference's is ``artifacts/calib``) — one fitted
 RandomForest per (hardware, operator), carrying the model geometry it was
 fitted for, the oracle that produced the ground truth, held-out error
 metrics, and a spec-hash provenance digest (sha256 of the canonical
@@ -133,9 +134,10 @@ def load_artifact(path: str) -> CalibrationArtifact:
     return art
 
 
-def discover_artifacts(root: str = os.path.join("artifacts", "calib")
+def discover_artifacts(root: str = os.path.join("artifacts", "calib_torch")
                        ) -> List[Dict]:
-    """Lightweight listing (no forest rehydration) for ``repro list``."""
+    """Lightweight listing (no forest rehydration) for ``python -m
+    repro_torch list``, under the port's own root by default."""
     found = []
     if not os.path.isdir(root):
         return found

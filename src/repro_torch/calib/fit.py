@@ -86,7 +86,7 @@ def calibrate(model: str = "qwen2-7b",
               max_len: Optional[int] = None,
               max_batch: Optional[int] = None,
               window: int = 0,
-              out_root: Optional[str] = "artifacts/calib",
+              out_root: Optional[str] = "artifacts/calib_torch",
               device="cuda",
               ) -> CalibrationResult:
     """Fit per-operator models for (model, hardware) against an oracle and

@@ -11,6 +11,7 @@ The build directory is ``build/kernels`` at the root of the source checkout.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -31,13 +32,42 @@ last_build_s: float = 0.0
 
 
 _COUNT_LOCK = threading.Lock()
+_RECORDING = threading.local()
 
 
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``: ranks of a threaded world launch
-    from several threads, and ``+= 1`` is not atomic."""
+    from several threads, and ``+= 1`` is not atomic.
+
+    While this thread captures a CUDA graph the launch is recorded in the
+    capture's tally instead (``recording``): capture executes nothing, and
+    each replay of the graph adds the tally (``add_launches``)."""
+    tally = getattr(_RECORDING, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the launches this thread makes into a ``{wrapper: n}`` tally
+    (a CUDA graph's capture) rather than count them."""
+    if getattr(_RECORDING, "tally", None) is not None:
+        raise RuntimeError("a capture is already recording launches")
+    _RECORDING.tally = {}
+    try:
+        yield _RECORDING.tally
+    finally:
+        _RECORDING.tally = None
+
+
+def add_launches(tally: dict) -> None:
+    """Count a recorded tally once more (one replay of its graph)."""
+    with _COUNT_LOCK:
+        for wrapper, n in tally.items():
+            wrapper.launches += n
 
 
 class KernelBuildError(RuntimeError):

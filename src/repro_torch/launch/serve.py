@@ -6,11 +6,13 @@ Table-2 protocol).
     python -m repro_torch.launch.serve --device cpu     # smoke model, CPU
 
 ``run`` is the reference's ``run`` with its defaults (the smoke geometry,
-f32, ``calibrate`` fitting virtual-kernel forests); ``device``, ``smoke``
-and ``dtype`` are the port's.  Its two halves are public, so a caller can
-measure a full-width or layer-cut config and price it from other operator
-models: :func:`measure` serves a warm pass and a measured pass, and
-:func:`predict` simulates the same fixed batch on a colocated tp=1
+f32, ``calibrate`` fitting virtual-kernel forests); ``device``, ``smoke``,
+``dtype`` and ``eager`` are the port's.  The engine replays its steps from
+CUDA graphs on the card, as the reference's runs jitted steps; ``eager=True``
+runs them uncaptured, for a comparison.  Its two halves are public, so a
+caller can measure a full-width or layer-cut config and price it from other
+operator models: :func:`measure` serves a warm pass and a measured pass,
+and :func:`predict` simulates the same fixed batch on a colocated tp=1
 deployment built from the config itself (``build_colocated``, so a config
 with fewer layers is priced as it is served).
 """
@@ -34,17 +36,19 @@ from repro_torch.workload.generator import fixed_batch
 
 def measure(cfg: ModelConfig, *, batch: int, prompt_len: int,
             output_len: int, max_seq: int, seed: int = 0,
-            device="cuda", dtype=torch.float32, options=None
+            device="cuda", dtype=torch.float32, options=None, eager=False
             ) -> Tuple[Dict[str, float], float, List[ServeRequest]]:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens twice on one
-    ``MiniEngine`` (random weights from ``seed``): a warm pass, then the
-    measured pass.  Returns the measured pass's report, its decode floor
-    (the fastest decode step, in seconds) and its requests."""
+    ``MiniEngine`` (random weights from ``seed``): a warm pass, which
+    captures the steps' graphs on the card, then the measured pass.  Returns
+    the measured pass's report, its decode floor (the fastest decode step,
+    in seconds) and its requests."""
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, prompt_len) for _ in range(batch)]
 
     engine = MiniEngine(cfg, max_slots=batch, max_seq=max_seq, seed=seed,
-                        dtype=dtype, device=device, options=options)
+                        dtype=dtype, device=device, options=options,
+                        eager=eager)
     engine.submit(list(prompts), output_len)
     engine.run()                      # warm pass
     engine.step_log.clear()
@@ -74,11 +78,11 @@ def predict(cfg: ModelConfig, hw: HardwareSpec, step_floor: Optional[float],
 def run(arch: str = "qwen2-7b", *, batch: int = 4, prompt_len: int = 32,
         output_len: int = 32, max_seq: int = 256, seed: int = 0,
         calibrate: bool = True, device="cuda", smoke: bool = True,
-        dtype=torch.float32):
+        dtype=torch.float32, eager=False):
     cfg = get_config(arch, smoke=smoke)
     measured, step_floor, _ = measure(
         cfg, batch=batch, prompt_len=prompt_len, output_len=output_len,
-        max_seq=max_seq, seed=seed, device=device, dtype=dtype)
+        max_seq=max_seq, seed=seed, device=device, dtype=dtype, eager=eager)
     hw = measure_hardware(device)
     ops = (calibrate_refined(hw, n_heads=cfg.num_heads,
                              n_kv_heads=cfg.num_kv_heads,

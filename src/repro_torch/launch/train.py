@@ -18,11 +18,18 @@ TF32 stays off for matmuls (torch's default; nothing here turns it on), so
 an f32 run on the card computes what the same run computes on the CPU, to
 rounding.
 
+On one device the step runs on fixed tensors
+(``training.optimizer.StaticTrainStep``), the twin of the reference's
+jitted step with donated buffers: on the card it is captured in a CUDA
+graph after three eager steps and replayed (``eager=True``, ``--eager``:
+run it uncaptured); on the CPU it runs uncaptured.
+
 ``mesh_shape`` trains on a mesh named ("data", "model")[:len(mesh_shape)]
 over the process group the caller has initialised (one rank per mesh
 position, every rank calling ``run`` alike): parameters placed by
 ``convert.shard_params``, ZeRO-1 moments, batches split over the batch axes,
-as the reference's trainer does under ``jax.set_mesh``.
+as the reference's trainer does under ``jax.set_mesh``.  A step on a mesh
+runs eagerly (its DTensor collectives are not captured).
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import AxisRules, build_model, init_tree
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.data import DataConfig, SyntheticLM
-from repro_torch.training.optimizer import AdamW, AdamWConfig, make_train_step
+from repro_torch.training.optimizer import (
+    AdamW, AdamWConfig, StaticTrainStep, make_train_step)
 
 
 def small_config(base: ModelConfig, *, layers: int, d_model: int,
@@ -57,14 +65,23 @@ def run(arch: str = "yi-9b", *, smoke: bool = True, steps: int = 50,
         ckpt_dir: str = "", ckpt_every: int = 25, resume: bool = False,
         mesh_shape=None, log_every: int = 10, size: str = "smoke",
         dtype=torch.float32, seed: int = 0, remat: str = "none",
-        device="cuda", layers=None):
+        device="cuda", layers=None, eager=None):
     """Train; returns ``first_loss``, ``last_loss``, ``losses``, ``params``
     and ``opt_state`` as the reference does, and ``step_s``: each step's
-    seconds, from the batch on the device to the loss on the host."""
+    seconds, from the batch on the host to the loss on the host.
+
+    ``eager``: ``None`` (the default) captures the step in a CUDA graph on
+    one card and runs it eagerly on a mesh; ``True`` runs it eagerly
+    everywhere; ``False`` asks for the graph, and raises on a mesh.  On the
+    CPU nothing is captured either way."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training runs on the card by default and found no "
                            "CUDA device; pass device='cpu' to run on the CPU")
+    if mesh_shape and eager is False:
+        raise ValueError("a step on a mesh runs eagerly: its DTensor "
+                         "collectives are not captured in a CUDA graph; pass "
+                         "eager=None or eager=True with mesh_shape")
     if size == "100m":
         cfg = small_config(get_config(arch), layers=8, d_model=512,
                            d_ff=2048, vocab=8192, heads=8)
@@ -95,16 +112,24 @@ def run(arch: str = "yi-9b", *, smoke: bool = True, steps: int = 50,
 
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                                   global_batch=global_batch, seed=seed))
-    step_fn = make_train_step(model, opt)
+    if mesh is None:
+        static = StaticTrainStep(model, opt, params, opt_state,
+                                 graph=device.type == "cuda" and not eager)
+    else:
+        step_fn = make_train_step(model, opt)
 
     losses, step_s = [], []
     t0 = time.time()
     for step in range(start_step, start_step + steps):
         batch = data.batch(step)
         t_step = time.perf_counter()
-        batch = place_batch(ax, {k: torch.from_numpy(v).to(device)
-                                 for k, v in batch.items()})
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if mesh is None:
+            metrics = static(batch)
+            opt_state = static.opt_state
+        else:
+            batch = place_batch(ax, {k: torch.from_numpy(v).to(device)
+                                     for k, v in batch.items()})
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(_full(metrics["loss"]))
         step_s.append(time.perf_counter() - t_step)
         losses.append(loss)
@@ -148,12 +173,15 @@ def main(argv=None) -> None:
                     help="the config's full width")
     ap.add_argument("--remat", default="none", choices=["none", "full", "dots"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eager", action="store_true", default=None,
+                    help="run the step uncaptured (by default the card "
+                         "replays it from a CUDA graph)")
     a = ap.parse_args(argv)
     out = run(a.arch, smoke=a.smoke, steps=a.steps, seq_len=a.seq_len,
               global_batch=a.global_batch, lr=a.lr, ckpt_dir=a.ckpt_dir,
               ckpt_every=a.ckpt_every, resume=a.resume, size=a.size,
               log_every=a.log_every, seed=a.seed, remat=a.remat,
-              device=a.device, layers=a.layers)
+              device=a.device, layers=a.layers, eager=a.eager)
     print(f"loss: {out['first_loss']:.4f} -> {out['last_loss']:.4f}")
 
 

@@ -454,8 +454,10 @@ def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float):
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32,
                         device=positions.device) / half
-    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                       device=positions.device), exps)
+    # a fill on the device, not a copy from the host, which a step captured
+    # in a CUDA graph cannot make
+    inv = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                     device=positions.device), exps)
     ang = positions.float()[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 

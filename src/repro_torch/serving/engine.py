@@ -18,13 +18,26 @@ decode starts from a state that has seen them.  The tokens equal the
 reference engine's, and equal a plain greedy loop only for prompts whose
 length is a bucket.
 
-The one addition to the reference's interface is ``options``, handed to
+Where the reference jits its decode step and one prefill per bucket, the
+port runs each step on fixed tensors: the slot cache, the decode inputs
+``tokens`` (max_slots, 1) and ``pos`` (max_slots,), and one (1, bucket)
+token buffer per prefill bucket.  Each step ``copy_``s its inputs into them
+and the decode step copies the cache the model returns into the slot cache
+(the model returns a new cache, it does not write in place).  On the card
+each step is captured once in a CUDA graph and replayed after
+(``repro_torch.graphs``): the decode step at the first decode, each prefill
+at its bucket's first prefill, the capturing step's own call run eagerly on
+a side stream and its result used.  On the CPU, or with ``eager=True`` on
+the card, the same steps run uncaptured.
+
+The additions to the reference's interface are ``options``, handed to
 ``AxisRules(None, options)``: it is how a caller reaches the layers'
 execution options, ``{"rwkv_impl": "chunked"}`` among them (the chunked WKV6
-kernel).
+kernel); and ``eager``.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -33,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.graphs import Graphed
 from repro_torch.models import build_model
 from repro_torch.models.common import AxisRules, init_tree, shape_tree, tree_map
 
@@ -59,7 +73,8 @@ class MiniEngine:
     def __init__(self, cfg: ModelConfig, *, max_slots: int = 8,
                  max_seq: int = 256, seed: int = 0, params=None,
                  dtype=torch.float32, device="cuda",
-                 options: Optional[Dict[str, Any]] = None):
+                 options: Optional[Dict[str, Any]] = None,
+                 eager: bool = False):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("MiniEngine runs on the card by default and "
@@ -84,6 +99,33 @@ class MiniEngine:
         self.waiting: List[ServeRequest] = []
         self.step_log: List[Dict] = []
 
+        # the steps' fixed inputs, and the steps themselves
+        self.graphed = self.device.type == "cuda" and not eager
+        self.tokens = torch.zeros((max_slots, 1), dtype=torch.int64,
+                                  device=self.device)
+        self.pos = torch.zeros((max_slots,), dtype=torch.int64, device=self.device)
+        self._decode = self._step(self._decode_body)
+        self._prefills: Dict[int, tuple] = {}    # bucket -> (tokens, step)
+        # One memory pool for every bucket's graph.  Safe only because each
+        # prefill's outputs are used up (copied into the slot, the first
+        # token read) before the next prefill replays any of them.
+        self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
+
+    def _step(self, fn, pool=None):
+        """``fn`` captured and replayed on the card, else ``fn`` itself."""
+        return Graphed(fn, pool=pool) if self.graphed else fn
+
+    def _decode_body(self) -> torch.Tensor:
+        logits, cache = self.model.decode(self.cache, self.tokens, self.pos)
+        for c_all, c_new in zip(self.cache["layers"], cache["layers"]):
+            for name, t in c_all.items():
+                t.copy_(c_new[name])
+        return logits
+
+    def _prefill_body(self, tokens: torch.Tensor):
+        return self.model.prefill({"tokens": tokens}, cache_len=self.max_seq,
+                                  all_logits=True)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -103,15 +145,20 @@ class MiniEngine:
         bucket = min(_bucket(S), self.max_seq)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :S] = req.prompt
+        if bucket not in self._prefills:
+            buf = torch.zeros((1, bucket), dtype=torch.int64, device=self.device)
+            self._prefills[bucket] = (buf, self._step(
+                functools.partial(self._prefill_body, buf), pool=self._pool))
+        buf, step = self._prefills[bucket]
         t0 = time.perf_counter()
-        logits, cache1 = self.model.prefill(
-            {"tokens": torch.from_numpy(toks).to(self.device)},
-            cache_len=self.max_seq, all_logits=True)
+        buf.copy_(torch.from_numpy(toks))
+        logits, cache1 = step()
         self._sync()
         dt = time.perf_counter() - t0
         self.step_log.append({"kind": "prefill", "tokens": int(S), "dur": dt})
 
-        # copy the request's cache into its slot (batch axis 0 of every leaf)
+        # copy the request's cache into its slot (batch axis 0 of every
+        # leaf); eager, since the slot is the host's
         for c_all, c_one in zip(self.cache["layers"], cache1["layers"]):
             for name, t in c_all.items():
                 t[slot:slot + 1] = c_one[name].to(t.dtype)
@@ -133,10 +180,10 @@ class MiniEngine:
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return
-        toks = torch.from_numpy(self.slot_tok.astype(np.int64)[:, None]).to(self.device)
-        pos = torch.from_numpy(self.slot_pos.astype(np.int64)).to(self.device)
+        self.tokens.copy_(torch.from_numpy(self.slot_tok.astype(np.int64)[:, None]))
+        self.pos.copy_(torch.from_numpy(self.slot_pos.astype(np.int64)))
         t0 = time.perf_counter()
-        logits, self.cache = self.model.decode(self.cache, toks, pos)
+        logits = self._decode()
         self._sync()
         dt = time.perf_counter() - t0
         self.step_log.append({"kind": "decode", "batch": len(active), "dur": dt})

@@ -24,6 +24,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor import zeros as dtensor_zeros
 
+from repro_torch.graphs import Graphed
 from repro_torch.models.common import (
     PD, AxisRules, tree_leaves, tree_map, tree_map_with,
 )
@@ -94,9 +95,13 @@ class AdamW:
     @torch.no_grad()
     def update(self, params, grads, state) -> Tuple[Any, Any]:
         """One step.  Writes the new values into ``params``' tensors and the
-        moments into ``state``'s, and returns ``(params, new_state)``."""
+        moments and the step counter into ``state``'s, and returns
+        ``(params, new_state)``, whose tensors are ``state``'s.  The counter
+        advances in place: a step captured in a CUDA graph reads the same
+        tensor at every replay, and a new one would leave the bias
+        corrections at the captured step's."""
         c = self.cfg
-        step = state["step"] + 1
+        step = state["step"].add_(1)
         # global-norm clip in f32
         gsq = sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads))
         gnorm = torch.sqrt(gsq)
@@ -156,3 +161,50 @@ def make_train_step(model, optimizer: AdamW):
         metrics["loss"] = loss.detach()
         return params, opt_state, metrics
     return train_step
+
+
+#: eager steps before a training step is captured (PyTorch's recipe for
+#: whole-network capture warms up three times)
+GRAPH_WARMUP = 3
+
+
+class StaticTrainStep:
+    """``make_train_step``'s step on fixed tensors: the twin of the
+    reference's jitted step with donated buffers (``launch/train.py``).
+
+    The parameters, the optimizer state and one buffer per batch input are
+    the same tensors at every step: a call ``copy_``s the batch into the
+    buffers and runs the step, whose AdamW writes the parameters, the
+    moments and the counter in place.  With ``graph`` (on the card) the
+    step is captured in a CUDA graph after ``GRAPH_WARMUP`` eager steps,
+    which are real steps run on a side stream (``repro_torch.graphs``), and
+    replayed after: forward, backward and AdamW.  The step sets the
+    gradients to ``None`` before its backward, inside the capture too, so
+    the captured backward allocates them from the graph's pool.  Returns
+    the step's metrics as tensors, which the next step overwrites."""
+
+    def __init__(self, model, optimizer: AdamW, params, opt_state, *,
+                 graph: bool = False):
+        self.params, self.opt_state = params, opt_state
+        self.device = tree_leaves(params)[0].device
+        self.batch: Dict[str, torch.Tensor] = {}
+        step = make_train_step(model, optimizer)
+
+        def body():
+            _, self.opt_state, metrics = step(self.params, self.opt_state,
+                                              self.batch)
+            return metrics
+        self._run = Graphed(body, warmup=GRAPH_WARMUP) if graph else body
+
+    def __call__(self, batch) -> Dict[str, torch.Tensor]:
+        """One step on ``batch`` (numpy arrays or tensors)."""
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        if not self.batch:
+            self.batch = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                          for k, v in batch.items()}
+        elif {k: (v.shape, v.dtype) for k, v in batch.items()} != {
+                k: (v.shape, v.dtype) for k, v in self.batch.items()}:
+            raise ValueError("a static step takes batches of one shape and type")
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+        return self._run()

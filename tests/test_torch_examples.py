@@ -35,6 +35,7 @@ PINNED = {
         ["   default — swap in the real Pallas kernels with --oracle pallas on an",
          "   accelerator) and print the fitted / analytical / vidur-proxy error",
          "   table on the held-out heterogeneous grid.",
+         '    ap.add_argument("--out", default="artifacts/calib")',
          "                    n_train=n_train, n_eval=n_eval, out_root=args.out)",
          "    analytical = run(base)",
          '                               "opmodel.calibration": args.out}))'],
@@ -44,6 +45,7 @@ PINNED = {
          "   default hardware, A800-SXM4-80G, so --oracle kernels labels the card's",
          "   times as an A800's.",
          "        [--oracle kernels] [--device cuda|cpu]",
+         '    ap.add_argument("--out", default="artifacts/calib_torch")',
          '    ap.add_argument("--device", default="cuda",',
          '                    help="where the oracle and the runs go; nothing steps down")',
          "                    n_train=n_train, n_eval=n_eval, out_root=args.out,",

@@ -21,7 +21,7 @@ def test_calibrated_spec_runs_to_the_reference_report(tmp_path):
               out_root=fit, device="cpu")
     with open(TWIN_DIR / "specs" / "calibration.json") as f:
         spec = json.load(f)
-    assert spec["opmodel"] == {"name": "refined", "calibration": "artifacts/calib"}
+    assert spec["opmodel"] == {"name": "refined", "calibration": "artifacts/calib_torch"}
     spec["opmodel"]["calibration"] = fit
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     ref = subprocess.Popen(

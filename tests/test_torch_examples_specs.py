@@ -19,10 +19,18 @@ def stable_view(report) -> str:
     return chip_smoke().stable_view(json.loads(report.to_json()))
 
 
+# The one value a JSON spec changes: the port fits into its own root, so a
+# port fit never prices the reference's runs.
+PORT_VALUES = {"calibration": {("opmodel", "calibration"): "artifacts/calib_torch"}}
+
+
 @pytest.mark.parametrize("name", SPECS)
 def test_json_spec_is_the_yaml_spec(name):
     with open(REF_DIR / "specs" / f"{name}.yaml") as f:
         want = yaml.safe_load(f)
+    for (section, key), value in PORT_VALUES.get(name, {}).items():
+        assert want[section][key] != value
+        want[section][key] = value
     with open(TWIN_DIR / "specs" / f"{name}.json") as f:
         assert json.load(f) == want
 
