@@ -14,7 +14,8 @@ paper's Table 2, ``repro_torch.launch.serve``), serve rwkv6-1.6b at full
 width through ``MiniEngine``, whose prefill runs the chunked WKV6 kernel in
 every layer, and train yi-9b at full width (``repro_torch.launch.train``, a
 path that launches no kernel: none has a backward), run the sharded path at
-full width in a threaded world of ranks on the one card, and cost steps and
+full width in a threaded world of ranks on the one card (and its training
+step, captured in a CUDA graph, on a one-rank NCCL world), and cost steps and
 production meshes without running them (``repro_torch.launch.dryrun``, the
 ``hlo`` oracle), and run the twins of the examples (``examples_torch/``),
 held to what the reference prints.  Phases,
@@ -132,7 +133,18 @@ one JSON line each (``simulate``, ``table2`` one per run or cell and one for the
                   (2, 4), every leaf byte-equal; (e) yi-9b, mixtral-8x7b and
                   rwkv6-1.6b at smoke width on (2, 4) (2 KV heads over 4
                   ranks): one loss within 1e-5 relative and every gradient
-                  within 1e-4 of its largest
+                  within 1e-4 of its largest; and first, right after the
+                  probe, (f) ``mesh_graph``: in a process of its own, a
+                  one-rank NCCL world whose (1, 1) mesh step
+                  ``launch.train.run`` captures in a CUDA graph: yi-9b at
+                  full width (4 layers, 2 x 4096 tokens, ``remat="full"``,
+                  3 warm-up steps and 6 replays), the 100m geometry of
+                  ``train_lm`` (20 steps) and mixtral-8x7b at full width (1
+                  layer, 2 x 2048 tokens), each graphed losses equal to
+                  ``eager=True``'s to the bit and within 1e-5 relative of
+                  one card's graphed step; step ms of the three, peak GB,
+                  and the NCCL kernels of one replay of mixtral-8x7b's
+                  step (``torch.profiler``, by kernel name)
 12. ``cost``      the cost extraction (``repro_torch.launch.hlo_cost``, steps
                   counted on fake tensors, nothing allocated): (a) the ``hlo``
                   oracle's prices of phase ``kernels``' three timed shapes
@@ -2351,6 +2363,152 @@ def nccl_probe() -> dict:
             "last_lines": [lns[-1:] for lns in lines]}
 
 
+# (f): the mesh step captured in a CUDA graph, on a one-rank NCCL world in a
+# process of its own (its default group cannot share a process with the
+# threaded worlds).  Each item is ``launch.train.run(mesh_shape=(1, 1))``
+# graphed (GRAPH_WARMUP eager steps, then replays), beside eager=True on the
+# mesh for MESH_GRAPH_EAGER_STEPS (the warm-up's and three replays' losses
+# compared) and the graphed step on one card for MESH_GRAPH_ONE_CARD_STEPS
+# (the warm-up and one replay); f32, TF32 off.
+MESH_GRAPH = {    # name: (run's arguments, steps)
+    "yi": (dict(arch="yi-9b", smoke=False, layers=4, seq_len=4096, global_batch=2,
+                lr=3e-4, remat="full"), GRAPH_WARMUP + 6),
+    "100m": (dict(arch="yi-9b", size="100m", seq_len=256, global_batch=4,
+                  lr=3e-4), 20),
+    "moe": (dict(arch="mixtral-8x7b", smoke=False, layers=1, seq_len=2048,
+                 global_batch=2, lr=3e-4, remat="full"), GRAPH_WARMUP + 3),
+}
+MESH_GRAPH_EAGER_STEPS = GRAPH_WARMUP + 3
+MESH_GRAPH_ONE_CARD_STEPS = GRAPH_WARMUP + 1
+MESH_GRAPH_TIMEOUT_S = 300
+
+
+def _mesh_graph_run(spec: dict, steps: int, **kw) -> dict:
+    """One ``launch.train.run`` of ``spec``: whether it was captured, its
+    losses, step ms, peak GB and wall s; its tensors and graph are freed
+    before it returns."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spec = dict(spec)
+    with contextlib.redirect_stdout(sys.stderr):
+        out = train_launch.run(spec.pop("arch"), steps=steps, device="cuda",
+                               log_every=1000, **spec, **kw)
+    torch.cuda.synchronize()
+    res = {"graphed": out["graphed"],
+           "step_ms": steady_ms(out["step_s"], eager=not out["graphed"]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": out["losses"], "steps_s": sum(out["step_s"])}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def _nccl_kernels(spec: dict, steps: int, **kw) -> dict:
+    """NCCL kernels a run of ``steps`` put on the card, by
+    ``torch.profiler``'s kernel names (any name holding "nccl")."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _mesh_graph_run(spec, steps, **kw)
+    return {e.key: e.count for e in prof.key_averages() if "nccl" in e.key.lower()}
+
+
+def mesh_graph_item(name: str) -> dict:
+    """One item of (f): the mesh run graphed and eager (losses equal to the
+    bit), and one card graphed (losses within TOL_SHARD_LOSS_REL); for the
+    MoE item also the NCCL kernels of one replay: those of a profiled
+    graphed run of GRAPH_WARMUP eager steps and one replay, less
+    GRAPH_WARMUP eager steps' from a profiled eager run of two (run only
+    where the graphed run had any: counts are never negative)."""
+    spec, steps = MESH_GRAPH[name]
+    mesh = dict(mesh_shape=(1, 1))
+    runs = {"mesh_graphed": _mesh_graph_run(spec, steps, **mesh),
+            "mesh_eager": _mesh_graph_run(spec, MESH_GRAPH_EAGER_STEPS, eager=True,
+                                          **mesh),
+            "one_card_graphed": _mesh_graph_run(spec, MESH_GRAPH_ONE_CARD_STEPS)}
+    g, e, one = runs.values()
+    failures = []
+    if not (g["graphed"] and one["graphed"]) or e["graphed"]:
+        failures.append(f"{name}: graphed mesh {g['graphed']}, eager mesh "
+                        f"{e['graphed']}, one card {one['graphed']}")
+    if not all(math.isfinite(x) for x in g["losses"]):
+        failures.append(f"{name}: losses not finite: {g['losses']}")
+    equal = g["losses"][:len(e["losses"])] == e["losses"]
+    if not equal:
+        failures.append(f"{name}: graphed mesh losses {g['losses']} differ from "
+                        f"eager {e['losses']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], one["losses"]))
+    if not rel <= TOL_SHARD_LOSS_REL:
+        failures.append(f"{name}: mesh losses {rel:.3e} (relative) from one card's")
+    res = {**spec, "steps": steps, "runs": runs, "losses_equal_eager": equal,
+           "loss_rel_to_one_card": rel,
+           "mesh_over_one_card_ms": g["step_ms"]["mean"] / one["step_ms"]["mean"],
+           "eager_over_graphed_ms": e["step_ms"]["mean"] / g["step_ms"]["mean"]}
+    if name == "moe":
+        graphed = _nccl_kernels(spec, GRAPH_WARMUP + 1, **mesh)
+        eager = _nccl_kernels(spec, 2, eager=True, **mesh) if graphed else {}
+        res["nccl_kernels"] = {
+            "graphed_run": graphed, "eager_two_steps": eager,
+            "per_replay": sum(graphed.values()) - GRAPH_WARMUP * sum(eager.values()) / 2}
+    res["failures"] = failures
+    return res
+
+
+def mesh_graph_world(port: str, spawned: str) -> None:
+    """(f)'s process: a one-rank NCCL world on the card, every item of
+    MESH_GRAPH in turn; prints one JSON line, with the seconds from its
+    spawn (``spawned``, the parent's ``time.time()``) to its world's start."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    out = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+           "start_s": time.time() - float(spawned)}
+    before = ops.launch_counts()
+    try:
+        for name in MESH_GRAPH:
+            t0 = time.perf_counter()
+            out[name] = mesh_graph_item(name)
+            out[name]["wall_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    out["kernel_launches"] = {k: n - before.get(k, 0)
+                              for k, n in ops.launch_counts().items()}
+    out["end_s"] = time.time() - float(spawned)
+    print(json.dumps(out), flush=True)
+
+
+def mesh_graph() -> dict:
+    """(f) in a subprocess: its JSON, and its failures (a kernel launched on
+    the training path among them)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.mesh_graph_world(*sys.argv[1:])", port, repr(time.time())],
+            cwd=ROOT, env=src_env(), timeout=MESH_GRAPH_TIMEOUT_S,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    except subprocess.TimeoutExpired as e:
+        return {"failures": [f"killed after {MESH_GRAPH_TIMEOUT_S} s: "
+                             f"{(e.stderr or '')[-2000:]}"]}
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        return {"failures": [f"exited with {proc.returncode}: {proc.stderr[-3000:]}"]}
+    res = json.loads(lines[-1])
+    res["failures"] = [msg for name in MESH_GRAPH for msg in res[name].pop("failures")]
+    if any(res["kernel_launches"].values()):
+        res["failures"].append(f"kernels launched on the training path: "
+                               f"{res['kernel_launches']}")
+    return res
+
+
 def phase_shard(card: str) -> int:
     import logging
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
@@ -2363,6 +2521,7 @@ def phase_shard(card: str) -> int:
 
     runs = {}
     for name, fn in (
+            ("mesh_graph", mesh_graph),
             ("moe", lambda: shard_moe(full_width(SHARD_MOE), SHARD_MOE["mesh"],
                                       SHARD_MOE["batch"], SHARD_MOE["seq"], "cuda")),
             ("train", lambda: shard_train(full_width(SHARD_TRAIN), SHARD_TRAIN["mesh"],
@@ -2382,13 +2541,15 @@ def phase_shard(card: str) -> int:
         for msg in res["failures"]:
             fail(f"shard {name}: {msg}")
         runs[name] = res
-        say("shard", run=name, world="threaded ranks on one card", **res)
+        say("shard", run=name, card=card, world=(
+            "one NCCL rank in a process of its own" if name == "mesh_graph"
+            else "threaded ranks on one card"), **res)
         gc.collect()
         torch.cuda.empty_cache()
     shutil.rmtree(os.path.join(ROOT, "build", "shard_ckpt"), ignore_errors=True)
     say("shard", ok=not FAILURES, card=card,
-        world="threaded: every rank a thread on the one card; no time here "
-              "stands for a multi-card deployment",
+        world="(f) one NCCL rank; the rest threaded, every rank a thread on "
+              "the one card; no time here stands for a multi-card deployment",
         wall_s=time.perf_counter() - t0,
         runs={k: {"failures": v["failures"], "wall_s": v["wall_s"]}
               for k, v in runs.items()})

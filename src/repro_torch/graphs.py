@@ -36,13 +36,17 @@ class Graphed:
 
     ``pool`` is a memory pool handle (``torch.cuda.graph_pool_handle()``)
     shared with other graphs; sharing is safe only where each graph's
-    outputs are used up before another graph of the pool replays."""
+    outputs are used up before another graph of the pool replays.
+    ``capture_error_mode`` is ``torch.cuda.graph``'s: "global" forbids
+    unsafe CUDA calls in every thread while the capture lasts,
+    "thread_local" only in the capturing thread."""
 
     def __init__(self, fn: Callable[[], Any], *, warmup: int = 1,
-                 pool: Optional[tuple] = None):
+                 pool: Optional[tuple] = None, capture_error_mode: str = "global"):
         if warmup < 1:
             raise ValueError("a graph needs at least one warm-up call")
         self.fn, self.warmup, self.pool = fn, warmup, pool
+        self.capture_error_mode = capture_error_mode
         self.calls = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Any = None
@@ -72,6 +76,7 @@ class Graphed:
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
         with _build.recording() as tally:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode=self.capture_error_mode):
                 out = self.fn()
         self.graph, self.out, self.tally = graph, out, tally

@@ -18,18 +18,20 @@ TF32 stays off for matmuls (torch's default; nothing here turns it on), so
 an f32 run on the card computes what the same run computes on the CPU, to
 rounding.
 
-On one device the step runs on fixed tensors
-(``training.optimizer.StaticTrainStep``), the twin of the reference's
-jitted step with donated buffers: on the card it is captured in a CUDA
-graph after three eager steps and replayed (``eager=True``, ``--eager``:
-run it uncaptured); on the CPU it runs uncaptured.
+The step runs on fixed tensors (``training.optimizer.StaticTrainStep``),
+the twin of the reference's jitted step with donated buffers, on one device
+and on a mesh alike: on the card it is captured in a CUDA graph after three
+eager steps and replayed (``eager=True``, ``--eager``: run it uncaptured);
+on the CPU it runs uncaptured.
 
 ``mesh_shape`` trains on a mesh named ("data", "model")[:len(mesh_shape)]
 over the process group the caller has initialised (one rank per mesh
 position, every rank calling ``run`` alike): parameters placed by
 ``convert.shard_params``, ZeRO-1 moments, batches split over the batch axes,
 as the reference's trainer does under ``jax.set_mesh``.  A step on a mesh
-runs eagerly (its DTensor collectives are not captured).
+is captured, collectives and all, where every process group of the mesh is
+NCCL's (``graph_step``); over gloo, the ``threaded`` test backend or
+``fake`` groups it runs eagerly.
 """
 from __future__ import annotations
 
@@ -38,18 +40,18 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import shard_params
-from repro_torch.launch.lowering import place_batch
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import AxisRules, build_model, init_tree
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.data import DataConfig, SyntheticLM
 from repro_torch.training.optimizer import (
-    AdamW, AdamWConfig, StaticTrainStep, make_train_step)
+    AdamW, AdamWConfig, StaticTrainStep)
 
 
 def small_config(base: ModelConfig, *, layers: int, d_model: int,
@@ -67,21 +69,23 @@ def run(arch: str = "yi-9b", *, smoke: bool = True, steps: int = 50,
         dtype=torch.float32, seed: int = 0, remat: str = "none",
         device="cuda", layers=None, eager=None):
     """Train; returns ``first_loss``, ``last_loss``, ``losses``, ``params``
-    and ``opt_state`` as the reference does, and ``step_s``: each step's
-    seconds, from the batch on the host to the loss on the host.
+    and ``opt_state`` as the reference does, ``step_s``: each step's
+    seconds, from the batch on the host to the loss on the host, and
+    ``graphed``: whether the step was captured in a CUDA graph (every step
+    after the warm-up then replays it).
 
     ``eager``: ``None`` (the default) captures the step in a CUDA graph on
-    one card and runs it eagerly on a mesh; ``True`` runs it eagerly
-    everywhere; ``False`` asks for the graph, and raises on a mesh.  On the
-    CPU nothing is captured either way."""
+    one card and on a mesh of cards whose process groups are all NCCL's,
+    and runs it eagerly elsewhere (the CPU; gloo, ``threaded`` or ``fake``
+    groups); ``True`` runs it eagerly everywhere; ``False`` asks for the
+    graph, and raises on a mesh where none can be taken.  On the CPU
+    without a mesh nothing is captured either way."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training runs on the card by default and found no "
                            "CUDA device; pass device='cpu' to run on the CPU")
-    if mesh_shape and eager is False:
-        raise ValueError("a step on a mesh runs eagerly: its DTensor "
-                         "collectives are not captured in a CUDA graph; pass "
-                         "eager=None or eager=True with mesh_shape")
+    if mesh_shape and eager is False and device.type != "cuda":
+        _refuse_graph("on the CPU")      # before any process group is needed
     if size == "100m":
         cfg = small_config(get_config(arch), layers=8, d_model=512,
                            d_ff=2048, vocab=8192, heads=8)
@@ -112,24 +116,16 @@ def run(arch: str = "yi-9b", *, smoke: bool = True, steps: int = 50,
 
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                                   global_batch=global_batch, seed=seed))
-    if mesh is None:
-        static = StaticTrainStep(model, opt, params, opt_state,
-                                 graph=device.type == "cuda" and not eager)
-    else:
-        step_fn = make_train_step(model, opt)
+    static = StaticTrainStep(model, opt, params, opt_state,
+                             graph=graph_step(device, mesh, eager))
 
     losses, step_s = [], []
     t0 = time.time()
     for step in range(start_step, start_step + steps):
         batch = data.batch(step)
         t_step = time.perf_counter()
-        if mesh is None:
-            metrics = static(batch)
-            opt_state = static.opt_state
-        else:
-            batch = place_batch(ax, {k: torch.from_numpy(v).to(device)
-                                     for k, v in batch.items()})
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
+        metrics = static(batch)
+        opt_state = static.opt_state
         loss = float(_full(metrics["loss"]))
         step_s.append(time.perf_counter() - t_step)
         losses.append(loss)
@@ -144,7 +140,37 @@ def run(arch: str = "yi-9b", *, smoke: bool = True, steps: int = 50,
             print(f"checkpoint -> {path}")
     return {"first_loss": losses[0], "last_loss": losses[-1],
             "losses": losses, "params": params, "opt_state": opt_state,
-            "step_s": step_s}
+            "step_s": step_s, "graphed": static.captured}
+
+
+def graph_step(device: torch.device, mesh, eager) -> bool:
+    """Whether ``run`` captures its step in a CUDA graph (its ``eager``).
+
+    Only on the card, and on a mesh only where every process group of the
+    mesh is NCCL's: a CUDA graph captures NCCL's kernels like any other,
+    where gloo runs its collectives on the host and the ``threaded`` test
+    backend copies between threads in Python.  ``eager=False`` raises on a
+    mesh where no graph can be taken, naming the backends."""
+    if eager or device.type != "cuda":
+        if eager is False and mesh is not None:
+            _refuse_graph("on the CPU")
+        return False
+    if mesh is None:
+        return True
+    backends = {dist.get_backend(mesh.get_group(name)) for name in mesh.mesh_dim_names}
+    others = sorted(b for b in backends      # "nccl", or "cpu:gloo,cuda:nccl"
+                    if b != "nccl" and "cuda:nccl" not in b.split(","))
+    if not others:
+        return True
+    if eager is False:
+        _refuse_graph(f"over {', '.join(others)} process groups")
+    return False
+
+
+def _refuse_graph(where: str):
+    raise ValueError(f"a step on a mesh {where} runs eagerly: a CUDA graph "
+                     "captures a mesh step only on the card with NCCL process "
+                     "groups; pass eager=None or eager=True with mesh_shape")
 
 
 def _full(t: torch.Tensor) -> torch.Tensor:
@@ -175,7 +201,8 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eager", action="store_true", default=None,
                     help="run the step uncaptured (by default the card "
-                         "replays it from a CUDA graph)")
+                         "replays it from a CUDA graph, on a mesh where its "
+                         "process groups are NCCL's)")
     a = ap.parse_args(argv)
     out = run(a.arch, smoke=a.smoke, steps=a.steps, seq_len=a.seq_len,
               global_batch=a.global_batch, lr=a.lr, ckpt_dir=a.ckpt_dir,

@@ -55,9 +55,13 @@ class SyntheticLM:
         T = cfg.seq_len + 1
         toks = np.empty((b_local, T), np.int32)
         s = rng.integers(0, cfg.n_states, b_local)
-        for t in range(T):   # vectorized over batch
+        for t in range(T):   # one position at a time, every row
             u_tok = rng.random((b_local, 1))
-            toks[:, t] = (self.emit_cum[s] < u_tok).sum(axis=1)
+            # the reference's (emit_cum[s] < u_tok).sum(axis=1), by bisection
+            # of each row (a cumulative sum ascends): the same counts, without
+            # a pass over the vocabulary per token
+            toks[:, t] = [np.searchsorted(self.emit_cum[i], u)
+                          for i, u in zip(s, u_tok[:, 0])]
             u_s = rng.random((b_local, 1))
             s = (self.trans_cum[s] < u_s).sum(axis=1)
         np.clip(toks, 0, cfg.vocab_size - 1, out=toks)

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.graphs import Graphed
@@ -181,12 +181,25 @@ class StaticTrainStep:
     replayed after: forward, backward and AdamW.  The step sets the
     gradients to ``None`` before its backward, inside the capture too, so
     the captured backward allocates them from the graph's pool.  Returns
-    the step's metrics as tensors, which the next step overwrites."""
+    the step's metrics as tensors, which the next step overwrites.
+
+    On a mesh (``model.ax.mesh``) the parameters and moments are DTensors
+    (ZeRO-1's moments on their own placements), and each batch buffer is a
+    DTensor with ``launch.lowering.place_batch``'s placements: a call copies
+    this rank's part of the host batch into its local shard, outside the
+    graph, and no collective moves the batch.  The step's collectives
+    (DTensor's redistributions, the grad-norm's sum, the ``local_map``
+    bodies' c10d calls) run inside the step, and with ``graph`` inside the
+    capture, which only NCCL process groups allow
+    (``launch.train.graph_step``); a group's communicator is made at its
+    first collective, in the warm-up steps at the latest, never in the
+    capture.  The metrics are DTensors."""
 
     def __init__(self, model, optimizer: AdamW, params, opt_state, *,
                  graph: bool = False):
         self.params, self.opt_state = params, opt_state
         self.device = tree_leaves(params)[0].device
+        self.ax = model.ax
         self.batch: Dict[str, torch.Tensor] = {}
         step = make_train_step(model, optimizer)
 
@@ -194,17 +207,47 @@ class StaticTrainStep:
             _, self.opt_state, metrics = step(self.params, self.opt_state,
                                               self.batch)
             return metrics
-        self._run = Graphed(body, warmup=GRAPH_WARMUP) if graph else body
+        # On a mesh the capture is "thread_local": ProcessGroupNCCL's
+        # watchdog thread queries the events of earlier collectives
+        # (cudaEventQuery) whenever it wakes, and "global" forbids that call
+        # in every thread while the capture lasts, failing the capture.
+        self._run = Graphed(body, warmup=GRAPH_WARMUP, capture_error_mode=(
+            "global" if self.ax.mesh is None else "thread_local")) if graph else body
+
+    @property
+    def captured(self) -> bool:
+        """Whether the step replays a CUDA graph now."""
+        return isinstance(self._run, Graphed) and self._run.captured
 
     def __call__(self, batch) -> Dict[str, torch.Tensor]:
-        """One step on ``batch`` (numpy arrays or tensors)."""
+        """One step on ``batch`` (numpy arrays or tensors; on a mesh the whole
+        batch, the same on every rank)."""
         batch = {k: torch.as_tensor(v) for k, v in batch.items()}
         if not self.batch:
-            self.batch = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
-                          for k, v in batch.items()}
+            self.batch = self._buffers(batch)
         elif {k: (v.shape, v.dtype) for k, v in batch.items()} != {
                 k: (v.shape, v.dtype) for k, v in self.batch.items()}:
             raise ValueError("a static step takes batches of one shape and type")
         for k, v in batch.items():
-            self.batch[k].copy_(v)
+            buf = self.batch[k]
+            if isinstance(buf, DTensor):
+                buf, v = buf.to_local(), _rank_part(v, buf.device_mesh, buf.placements)
+            buf.copy_(v)
         return self._run()
+
+    def _buffers(self, batch) -> Dict[str, torch.Tensor]:
+        mesh = self.ax.mesh
+        if mesh is None:
+            return {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                    for k, v in batch.items()}
+        from repro_torch.launch.lowering import batch_shardings  # it imports this module
+        return {k: DTensor.from_local(torch.empty_like(_rank_part(v, mesh, pl)), mesh,
+                                      pl, run_check=False)
+                for (k, v), pl in zip(batch.items(),
+                                      batch_shardings(self.ax, batch).values())}
+
+
+def _rank_part(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of ``t`` (the whole tensor, the same on every rank)
+    on the mesh's device, cut locally: no collective."""
+    return distribute_tensor(t, mesh, placements, src_data_rank=None).to_local()

@@ -15,9 +15,12 @@ the CPU; and ``make_production_mesh`` is built on ``fake`` process groups of
 Cases: the reference's four (the sharded ZeRO-1 train step, the MoE
 ``shard_map`` bodies, elastic checkpoint resharding, ``build_step``), plus
 TPFF, the vocab-sharded embedding and its fallback, ``launch.train.run`` on a
-mesh with a resumed checkpoint, and sharded prefill and decode of every
+mesh with a resumed checkpoint, its static step against a plain
+``make_train_step`` loop to the bit, and sharded prefill and decode of every
 architecture family against the same model unsharded; in the threaded
-world, the gradients of three families on (2, 4) against unsharded.
+world, the gradients of three families on (2, 4) against unsharded.  On the
+gloo, threaded and fake worlds: ``launch.train.graph_step`` runs a mesh
+step eagerly and refuses ``eager=False``.
 """
 import dataclasses
 import os
@@ -269,6 +272,84 @@ def case_train_run(rank, inputs):
     return {"one": one, "mesh": straight, "resumed": first + resumed}
 
 
+def case_static_mesh(rank, inputs):
+    """``launch.train.run`` on (2, 2), whose static step runs uncaptured on
+    gloo, against a plain ``make_train_step`` loop fed ``place_batch``
+    batches from the same weights: four steps' losses, and every rank's
+    parameter and moment shards after them (gathered from all ranks)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_params
+    from repro_torch.launch import train
+    from repro_torch.launch.lowering import place_batch
+    from repro_torch.models import AxisRules, build_model, init_tree
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamW, AdamWConfig, make_train_step
+    steps, seq, batch, lr = 4, 32, 4, 1e-3
+    out = train.run("yi-9b", steps=steps, seq_len=seq, global_batch=batch, lr=lr,
+                    mesh_shape=(2, 2), log_every=100, device="cpu")
+    cfg = get_config("yi-9b", smoke=True)
+    ax = AxisRules(_mesh((2, 2)))
+    model = build_model(cfg, ax)
+    pds = model.pds()
+    opt = AdamW(AdamWConfig(lr=lr, zero1=True), ax)
+    params = shard_params(init_tree(torch.Generator().manual_seed(0), pds,
+                                    torch.float32, "cpu"), pds, ax)
+    state = opt.init(params, pds)
+    model.load_params(params)
+    model.requires_grad_(True)
+    step = make_train_step(model, opt)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch, seed=0))
+    plain = []
+    for i in range(steps):
+        placed = place_batch(ax, {k: torch.from_numpy(v) for k, v in data.batch(i).items()})
+        params, state, metrics = step(params, state, placed)
+        plain.append(float(_full(metrics["loss"])))
+
+    def equal(a, b):
+        return [bool(torch.equal(x.to_local(), y.to_local()))
+                for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    mine = {"params": equal(out["params"], params),
+            "moments": equal(out["opt_state"]["m"], state["m"])
+            + equal(out["opt_state"]["v"], state["v"]),
+            "step": int(out["opt_state"]["step"].to_local()),
+            "zero1_shards": sum(t.placements[0].is_shard()
+                                for t in tree_leaves(out["opt_state"]["m"]))}
+    ranks = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(ranks, mine)
+    return {"graphed": out["graphed"], "losses": out["losses"], "plain": plain,
+            "ranks": ranks}
+
+
+def capture_choice(mesh):
+    """``launch.train.graph_step`` on ``mesh``: the default and ``eager=False``
+    for a CPU and a CUDA device (the latter only names the device type: no
+    card is touched)."""
+    from repro_torch.launch.train import graph_step
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = graph_step(torch.device(dev), mesh, None)
+        try:
+            graph_step(torch.device(dev), mesh, False)
+            out[f"{dev}_refused"] = None
+        except ValueError as e:
+            out[f"{dev}_refused"] = str(e)
+    return out
+
+
+def case_capture_choice(rank, inputs):
+    """The capture decision on a gloo mesh, and ``run(eager=False)`` there."""
+    from repro_torch.launch import train
+    out = capture_choice(_mesh((2, 2)))
+    try:
+        train.run("yi-9b", steps=1, mesh_shape=(2, 2), device="cpu", eager=False)
+        out["run_refused"] = None
+    except ValueError as e:
+        out["run_refused"] = str(e)
+    return out
+
+
 def case_rwkv_chunked(rank, inputs):
     """rwkv6's chunked prefill on (1, 4) (the WKV under local_map, one head
     a rank) against one device, with its final states."""
@@ -329,7 +410,8 @@ CASES = {
         ("build_step", case_build_step), ("families", case_families)],
     4: [("moe_tpff", case_moe_tpff), ("moe_data_only", case_moe_data_only),
         ("rwkv_chunked", case_rwkv_chunked),
-        ("train_run", case_train_run)],
+        ("train_run", case_train_run), ("static_mesh", case_static_mesh),
+        ("capture_choice", case_capture_choice)],
     3: [("embed", case_embed)],
 }
 
@@ -375,6 +457,8 @@ def _threaded_main(out_dir):
             str(Path(out_dir) / "ckpt")),
         "threaded_grads": lambda: chip_smoke.shard_grads(
             GRAD_ARCHS, (2, 4), 4, 32, "cpu"),
+        "threaded_capture_choice": lambda: chip_smoke.threaded_world(
+            4, lambda rank: capture_choice(_mesh((2, 2))), "cpu")[0],
     }
     for name, fn in runs.items():
         try:
@@ -403,6 +487,8 @@ def _fake_main(out_dir):
                           "batch_axes": ax.batch_axes,
                           "embed": ax.resolve(("vocab", "embed"), (4096, 64)),
                           "batch": ax.resolve(("batch", None), (64, 8))}
+            if world == 256:
+                out["capture_choice"] = capture_choice(mesh)
         finally:
             dist.destroy_process_group()
     try:
@@ -669,6 +755,37 @@ def test_train_run_on_a_mesh(worlds):
     res = worlds.result("4", "train_run")
     np.testing.assert_allclose(res["mesh"], res["one"], rtol=5e-3, atol=5e-3)
     np.testing.assert_allclose(res["resumed"], res["one"], rtol=5e-3, atol=5e-3)
+
+
+def test_static_mesh_step_equals_the_plain_loop(worlds):
+    """On gloo the mesh step runs through ``StaticTrainStep`` uncaptured, and
+    its losses, parameters and ZeRO-1 moments equal a plain
+    ``make_train_step`` loop's to the bit, on every rank."""
+    res = worlds.result("4", "static_mesh")
+    assert res["graphed"] is False
+    assert res["losses"] == res["plain"], res
+    for rank, mine in enumerate(res["ranks"]):
+        assert all(mine["params"]) and all(mine["moments"]), (rank, mine)
+        assert mine["step"] == 4 and mine["zero1_shards"] > 0, (rank, mine)
+
+
+@pytest.mark.parametrize("kind,case,backend", [
+    ("4", "capture_choice", "gloo"),
+    ("threaded", "threaded_capture_choice", "threaded"),
+    ("fake", "fake", "fake")], ids=["gloo", "threaded", "fake"])
+def test_mesh_step_is_captured_only_over_nccl(worlds, kind, case, backend):
+    """``graph_step``: a mesh over gloo, the ``threaded`` test backend or
+    ``fake`` groups runs its step eagerly by default, and ``eager=False``
+    there raises, naming the backend for a CUDA device and the CPU for a
+    CPU one; so does ``run(eager=False)`` on a CPU mesh."""
+    res = worlds.result(kind, case)
+    res = res.get("capture_choice", res)
+    assert res["cpu"] is False and res["cuda"] is False, res
+    assert "eagerly" in res["cpu_refused"] and "on the CPU" in res["cpu_refused"]
+    assert "eagerly" in res["cuda_refused"], res
+    assert f"over {backend} process groups" in res["cuda_refused"], res
+    if kind == "4":
+        assert res["run_refused"] == res["cpu_refused"], res
 
 
 def test_rwkv_chunked_prefill_sharded_over_heads(worlds):

@@ -7,12 +7,19 @@ uncaptured.  On the card (``gpu``-marked, skipped elsewhere): a graphed
 ``MiniEngine`` serves the eager engine's tokens and logits for a dense, an
 MoE and both recurrent architectures, its replays count the WKV6 kernel's
 launches as eager launches do, and a captured training step equals the
-eager one step for step, to the bit, for a dense, an MoE and an rwkv6 model.  Run the card's cases with
-``python -m pytest -m gpu tests/test_torch_graphs.py``.
+eager one step for step, to the bit, for a dense, an MoE and an rwkv6 model,
+on one card and, for the dense and the MoE model, on a (1, 1) mesh over a
+one-rank NCCL world (in a process of its own: this file run as a script).
+Run the card's cases with ``python -m pytest -m gpu tests/test_torch_graphs.py``.
 
 This file imports the port only, so it also runs where jax is not installed.
 """
 import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -203,3 +210,56 @@ def test_trainer_default_replays_and_eager_agrees(cuda):
               log_every=100)
     assert train_run("qwen3-8b", **kw)["losses"] == \
         train_run("qwen3-8b", eager=True, **kw)["losses"]
+
+
+def _nccl_mesh_main(arch: str, out: str) -> None:
+    """A one-rank NCCL world in this process: ``launch.train.run`` on a (1, 1)
+    mesh, graphed and eager, at ``arch``'s smoke width with 2 layers; pickles
+    whether each was captured, their losses, and whether every parameter
+    and moment shard and the counter are equal."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{out}.store", rank=0,
+                            world_size=1)
+    try:
+        kw = dict(steps=6, seq_len=32, global_batch=2, layers=2, device="cuda",
+                  log_every=100, mesh_shape=(1, 1))
+        graphed, eager = train_run(arch, **kw), train_run(arch, eager=True, **kw)
+        same = [torch.equal(a.to_local(), b.to_local()) for a, b in zip(
+            tree_leaves((graphed["params"], graphed["opt_state"])),
+            tree_leaves((eager["params"], eager["opt_state"])))]
+        res = {"backend": dist.get_backend(), "graphed": graphed["graphed"],
+               "eager_graphed": eager["graphed"], "losses": graphed["losses"],
+               "eager_losses": eager["losses"], "same": same,
+               "step": int(graphed["opt_state"]["step"].to_local())}
+    finally:
+        dist.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-9b", "mixtral-8x7b"])
+def test_mesh_train_step_replays_on_a_one_rank_nccl_world(cuda, arch, tmp_path):
+    """The training step on a (1, 1) mesh of a one-rank NCCL world, its
+    parameters DTensors and its MoE body under ``local_map``: captured after
+    three eager steps and replayed three times, every loss, parameter,
+    moment and the counter equal ``eager=True``'s to the bit."""
+    out = tmp_path / "res.pkl"
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, __file__, arch, str(out)], env=env,
+                          cwd=str(root), capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    with open(out, "rb") as f:
+        res = pickle.load(f)
+    assert res["backend"] == "nccl"
+    assert res["graphed"] and not res["eager_graphed"]
+    assert res["losses"] == res["eager_losses"]
+    assert all(res["same"]) and res["step"] == 6
+
+
+if __name__ == "__main__":
+    _nccl_mesh_main(*sys.argv[1:])

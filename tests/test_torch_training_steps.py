@@ -94,6 +94,7 @@ def test_three_adamw_steps_match_reference(arch, options):
     (7, 512, 32, 2, 13, 0, 1),
     (3, 256, 16, 8, 5, 1, 2),
     (1, 64000, 64, 4, 2, 3, 4),
+    (2, 32000, 2048, 2, 1, 0, 1),
 ])
 def test_synthetic_batches_equal_reference(seed, vocab, seq, batch, step, rank, size):
     got = SyntheticLM(DataConfig(vocab, seq, batch, seed)).batch(step, rank, size)
