@@ -17,6 +17,14 @@ the graph and returns the tensors the capture returned; the next replay
 overwrites them, so a caller reads them before it calls again.  A failed
 capture raises; nothing falls back to running eagerly.
 
+Host code inside the function runs at capture only.  A ``record_function``
+range there marks the capture, never a replay, so it cannot attribute a
+replayed graph's kernels.  A timing event recorded there with
+``torch.cuda.Event(enable_timing=True, external=True)`` becomes an event
+node of the graph and records at every replay, so the time between two such
+events, read after the replay's synchronise, is device time inside the graph
+(``serving.engine.MiniEngine`` reads its steps' device seconds this way).
+
 A kernel wrapper counts its launches in Python, which a replay never calls:
 under capture ``_build.count_launch`` records into the graph's tally, and
 each replay adds that tally, so ``ops.launch_counts()`` still counts the
