@@ -24,7 +24,8 @@ one JSON line each (``simulate``, ``table2`` one per run or cell and one for the
 1. ``env``        the card as ``nvidia-smi`` names it, torch and CUDA versions
 2. ``build``      compiles ``src/repro_torch/kernels/csrc/*.cu``
 3. ``kernels``    every kernel against its plain PyTorch version on the card,
-                  f32 and bf16, then timed at every shape its path gives it,
+                  f32 and bf16 (decode attention also at the served
+                  engines' own shapes, ``SERVED_DECODE``), then timed at every shape its path gives it,
                   each beside its bound, its plain version and a library
                   call where one exists, by CUDA events and by ``device_ms``:
                   the attention kernels at ``calibrate``'s prefills of 512,
@@ -81,7 +82,12 @@ one JSON line each (``simulate``, ``table2`` one per run or cell and one for the
                   as ``engine_overhead`` and with the predictor's default.
                   Every prediction completes every request with finite
                   summaries, and a refined one repeats byte for byte.  No
-                  gate on the error: it is a reading.  Then the device's
+                  gate on the error: it is a reading.  Each model's engine
+                  also decodes through its donated slot cache: every
+                  replay launches the decode attention kernel once per
+                  layer, and its logits lie within ``TOL_DONATED`` of the
+                  same step through the functional path on a copy of the
+                  slot cache (``donated_decode_gap``).  Then the device's
                   idle share over 10 steady decode steps of qwen2-7b at
                   batch 4, graphed and eager, by ``torch.profiler``
 9. ``serve``      rwkv6-1.6b, random weights from a seed: (a) f32 prefill of
@@ -360,6 +366,10 @@ TABLE2 = {  # model: (layers kept, None for all; cells (batch, prompt, output))
     "mixtral-8x7b": (16, ((4, 512, 64), (8, 256, 64))),
 }
 TABLE2_MAX_SEQ = 1024
+# a donated decode step's logits against the functional path's: the largest
+# gap over the largest logit (bf16 rounding; a length off by one reads
+# 0.19-0.87 at the smoke size)
+TOL_DONATED = 5e-2
 # The device's idle share: qwen2-7b at full width, 4 slots of 128-token
 # prompts, read over 10 steady decode steps (``decode_idle_share``).
 IDLE_ARCH, IDLE_BATCH, IDLE_PROMPT, IDLE_STEPS = "qwen2-7b", 4, 128, 10
@@ -496,6 +506,13 @@ def check_flash(gen, rows: dict) -> None:
     rows[name] = dict(max_abs_err=max(errs))   # timed in time_attention
 
 
+# (model, slots, cache length): the decode attention the served engines run,
+# yi-9b's benchmark pool, qwen2-7b's Table 2 engine and recurrentgemma-2b's
+# local attention (a ring of 2048, 10 query heads on one KV head)
+SERVED_DECODE = (("yi-9b", 32, 4096), ("qwen2-7b", 8, TABLE2_MAX_SEQ),
+                 ("recurrentgemma-2b", 16, 2048))
+
+
 def check_decode(gen, rows: dict) -> None:
     name = "decode_attention"
     H, K, hd = 32, 8, 128
@@ -511,6 +528,20 @@ def check_decode(gen, rows: dict) -> None:
         got = ops.decode_attention(q, k, v, lens)
         errs.append(compare(name, f"mixed lengths {dtype}", got,
                             ref.decode_attention_ref(q, k, v, lens), tol))
+    # the shapes the served engines give it, in bf16 at full size
+    for arch, B, T in SERVED_DECODE:
+        cfg = get_config(arch)
+        Hh, Kk, hdd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        ln = torch.randint(1, T + 1, (B,), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32)
+        ln[0], ln[1] = 1, T
+        q = randn(gen, B, Hh, hdd, dtype=torch.bfloat16)
+        k = randn(gen, B, T, Kk, hdd, dtype=torch.bfloat16)
+        v = randn(gen, B, T, Kk, hdd, dtype=torch.bfloat16)
+        got = ops.decode_attention(q, k, v, ln)
+        errs.append(compare(name, f"{arch} B={B} T={T} H={Hh} K={Kk} hd={hdd} bf16",
+                            got, ref.decode_attention_ref(q, k, v, ln), TOL_BF16_ATTN))
+        del q, k, v, got
     # other group widths: MHA (G=1), G=7, and the pad path
     for Hh, Kk, hdd in ((8, 8, 128), (28, 4, 128), (16, 2, 112), (8, 1, 256)):
         q = randn(gen, 3, Hh, hdd, dtype=torch.float32)
@@ -1487,6 +1518,11 @@ def phase_table2(mixtral_roots: list) -> None:
                 tokens_equal_eager=equal,
                 order=list(runs), predict_s=time.perf_counter() - t1,
                 predicted=preds, mid_decode_step_ms=parts)
+        donated = donated_decode_gap(cfg, max(batch for batch, _, _ in grid))
+        if (max(donated["gaps"]) > TOL_DONATED
+                or set(donated["attn_kernel"]) != {donated["attention_layers"]}):
+            fail(f"table2 {arch}: donated decode {donated}")
+        say("table2_donated", model=arch, layers=len(cfg.pattern), **donated)
         stop_if_failed("table2")
     idle = {mode: decode_idle_share(get_config(IDLE_ARCH), eager=mode == "eager")
             for mode in ("graphed", "eager")}
@@ -1500,6 +1536,45 @@ def phase_table2(mixtral_roots: list) -> None:
               "mixtral-8x7b": mixtral_roots},
         fit_prices_tp1_cluster=coverage)
     stop_if_failed("table2")
+
+
+def donated_decode_gap(cfg, batch: int, replays: int = 4) -> dict:
+    """The graphed bf16 engine's decode, which hands the slot cache over
+    (each entry written in place, the decode attention kernel over each
+    slot's prefix), against the same step through the functional path
+    (``model.decode`` on a copy of the slot cache, which it leaves as it
+    was): ``replays`` replays at ragged lengths, each one's largest logit
+    gap over the largest logit, and each decode's ``attn_kernel``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = MiniEngine(cfg, max_slots=batch, max_seq=TABLE2_MAX_SEQ, seed=0,
+                     dtype=torch.bfloat16)
+    step, gaps = eng._decode, []
+
+    def checked():
+        if not step.captured:
+            return step()
+        cache = tree_map(torch.clone, eng.cache)
+        tokens, pos = eng.tokens.clone(), eng.pos.clone()
+        out = step()
+        with torch.no_grad():
+            want, _ = eng.model.decode(cache, tokens, pos)
+        want = want.float()
+        gaps.append(float((out.float() - want).abs().max() / want.abs().max()))
+        return out
+    eng._decode = checked
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        eng.submit([rng.integers(0, cfg.vocab_size, int(n))
+                    for n in rng.integers(64, 512, batch)], replays + 2)
+        eng.run()
+    n_attn = sum(k in ("global", "local") for k in eng.model.kinds)
+    kernels = [s["attn_kernel"] for s in eng.step_log if s["kind"] == "decode"]
+    del eng, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": batch, "gaps": gaps, "attention_layers": n_attn,
+            "attn_kernel": kernels}
 
 
 def _argmax(logits_row: torch.Tensor) -> int:

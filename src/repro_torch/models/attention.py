@@ -4,7 +4,10 @@ Port of ``repro/models/attention.py``: GQA with any (H, K), qk_norm,
 attention-logit softcap, sliding-window attention with ring caches,
 cross-attention, bidirectional encoders.  These are the reference's plain
 paths (``_sdpa`` and the blockwise online softmax); the reference models never
-call the Pallas attention kernels, and neither does the port.
+call the Pallas attention kernels.  The port calls one: a decode step whose
+caller hands its cache over (``donate``) writes its entry into that cache in
+place and attends with the decode attention kernel over each row's live
+prefix (``attention_decode``).
 
 TP mapping (megatron-style over the "model" mesh axis), as the reference's:
 train/prefill replicate KV heads ``rep = tp/gcd(K, tp)`` times so the q-head
@@ -24,6 +27,7 @@ from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.common import (
     PD, AxisRules, apply_rope, rms_norm, rope_freqs, softcap,
 )
@@ -244,6 +248,7 @@ def cache_pds(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, PD]:
 def attention_decode(cfg: ModelConfig, p, x, cache: Dict[str, torch.Tensor],
                      pos, ax: AxisRules, *, window: int = 0,
                      memory_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     donate: bool = False,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode.  x (B,1,D); cache k/v (B,Sc,K,hd); pos an int (one
     position for the batch) or a (B,) tensor (one per row, as the serving
@@ -251,8 +256,20 @@ def attention_decode(cfg: ModelConfig, p, x, cache: Dict[str, torch.Tensor],
 
     Sliding-window caches are ring buffers of length ``min(window, S)``;
     entries carry RoPE at their absolute positions.  Cross-attention passes
-    precomputed ``memory_kv``.  The cache is not written in place: a new one
-    is returned, as the reference does."""
+    precomputed ``memory_kv``.
+
+    By default the cache is not written: a new one is returned, as the
+    reference does.  With ``donate`` the caller hands its cache over (the
+    analogue of donating a buffer to a compiled step): where ``pos`` is per
+    row and there is no mesh, no logit softcap and no ``memory_kv``, row
+    ``b``'s entry is written in place at slot ``pos[b] % Sc`` and
+    ``kernels.ops.decode_attention`` attends over the first
+    ``min(pos[b] + 1, Sc)`` slots (the same positions the functional path
+    leaves valid); the input's own k/v tensors are returned.  On the card
+    that is the kernel at every shape: a head dim that is not a multiple of
+    128 (the smoke configs' 16) is zero-padded there, a copy of the cache
+    per layer that no full-size configuration pays, and a shape or dtype the
+    kernel refuses raises.  Anything else takes the functional path."""
     B = x.shape[0]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     scale = hd ** -0.5
@@ -326,6 +343,14 @@ def attention_decode(cfg: ModelConfig, p, x, cache: Dict[str, torch.Tensor],
 
     ck, cv = cache["k"], cache["v"]
     Sc = ck.shape[1]
+    if donate and per_row and ax.mesh is None and not cfg.attn_logit_softcap:
+        rows = torch.arange(B, device=x.device)
+        slot = pos % Sc
+        ck.index_put_((rows, slot), k_new[:, 0].to(ck.dtype))
+        cv.index_put_((rows, slot), v_new[:, 0].to(cv.dtype))
+        o = kernel_ops.decode_attention(q, ck, cv, torch.clamp(pos + 1, max=Sc))
+        y = torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None, :]
+        return y, {"k": ck, "v": cv}
     t = torch.arange(Sc, device=x.device)
     if per_row:
         slot = pos % Sc                                   # (B,)

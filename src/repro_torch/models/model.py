@@ -207,10 +207,11 @@ class LM(nn.Module):
             caches.append(c)
         return x, {"layers": tuple(caches)}
 
-    def _run_decode(self, cache, x, pos):
+    def _run_decode(self, cache, x, pos, donate: bool = False):
         caches = []
         for kind, p, c in zip(self.kinds, self.layers, cache["layers"]):
-            x, c = tfm.block_decode(self.cfg, kind, p, x, c, pos, self.ax)
+            x, c = tfm.block_decode(self.cfg, kind, p, x, c, pos, self.ax,
+                                    donate=donate)
             caches.append(c)
         return x, {"layers": tuple(caches)}
 
@@ -246,8 +247,11 @@ class LM(nn.Module):
         x, cache = self._run_prefill(x, cache_len=cache_len or x.shape[1])
         return self._logits(x if all_logits else x[:, -1:, :]), cache
 
-    def decode(self, cache, tokens, pos):
-        x, cache = self._run_decode(cache, self._embed(tokens), pos)
+    def decode(self, cache, tokens, pos, donate: bool = False):
+        """One token a row against ``cache``; ``donate`` hands the cache
+        over, to be written in place where a layer can
+        (``attention.attention_decode``).  -> (logits, cache)."""
+        x, cache = self._run_decode(cache, self._embed(tokens), pos, donate)
         return self._logits(x), cache
 
     # ------------------------------------------------------------- shapes --
@@ -333,9 +337,9 @@ class EncDec(nn.Module):
                                     memory=memory)
         return dec._logits(x if all_logits else x[:, -1:, :]), cache
 
-    def decode(self, cache, tokens, pos):
+    def decode(self, cache, tokens, pos, donate: bool = False):
         dec = self.decoder
-        x, cache = dec._run_decode(cache, dec._embed(tokens), pos)
+        x, cache = dec._run_decode(cache, dec._embed(tokens), pos, donate)
         return dec._logits(x), cache
 
     def cache_pds(self, batch: int, seq: int, memory_len: int = 0):

@@ -219,13 +219,17 @@ def _kv_to_cache(k, v, cache_len: int, window: int, ax: AxisRules):
 
 
 def block_decode(cfg: ModelConfig, kind: str, p, x, cache, pos, ax: AxisRules,
+                 donate: bool = False,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Single-token step.  x (B,1,D); pos an int or (B,) positions."""
+    """Single-token step.  x (B,1,D); pos an int or (B,) positions.
+    ``donate``: the caller hands its cache over, and self-attention may write
+    its entry in place (``attention.attention_decode``)."""
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         window = cfg.sliding_window if kind == ATTN_LOCAL else 0
         a, kv_cache = attn.attention_decode(
             cfg, p["attn"], _norm(cfg, p, "ln1", x),
-            {"k": cache["k"], "v": cache["v"]}, pos, ax, window=window)
+            {"k": cache["k"], "v": cache["v"]}, pos, ax, window=window,
+            donate=donate)
         x = x + _post(cfg, p, "ln1_post", a)
         new_cache = dict(cache)
         new_cache.update(kv_cache)

@@ -21,9 +21,14 @@ length is a bucket.
 Where the reference jits its decode step and one prefill per bucket, the
 port runs each step on fixed tensors: the slot cache, the decode inputs
 ``tokens`` (max_slots, 1) and ``pos`` (max_slots,), and one (1, bucket)
-token buffer per prefill bucket.  Each step ``copy_``s its inputs into them
-and the decode step copies the cache the model returns into the slot cache
-(the model returns a new cache, it does not write in place).  On the card
+token buffer per prefill bucket.  Each step ``copy_``s its inputs into them.
+The engine owns its slot cache, so its decode step hands it over
+(``model.decode(..., donate=True)``): each attention layer without a logit
+softcap writes its new entry into the slot cache in place and attends with
+the hand-written decode attention kernel over each slot's live prefix (on
+the CPU, its plain version), returning the slot cache's own tensors.  The
+step copies back only what the model returns as new tensors (recurrent
+states, and softcapped attention layers).  On the card
 each step is captured once in a CUDA graph and replayed after
 (``repro_torch.graphs``): the decode step at the first decode, each prefill
 at its bucket's first prefill, the capturing step's own call run eagerly on
@@ -48,7 +53,13 @@ On the card an entry also carries device seconds, from timing events
 recorded where the work runs and read after the step's synchronise (none
 added): decode ``device`` (its body, start to end) and ``copyback`` (from
 the model's return to the end of the copy of its cache into the slot
-cache); prefill ``device`` (the bucket's body) and ``slot_copy_device``.
+cache, an empty interval where nothing is copied back); prefill ``device``
+(the bucket's body) and ``slot_copy_device``.  A decode entry on the card
+also has ``attn_kernel``: the ``decode_attention`` kernel launches the step
+made (one per attention layer on the donated path, 0 on the functional
+one).  A replay reads them from its graph's own tally, with no synchronise
+(``repro_torch.graphs``); an eager or capturing call, as the change in the
+process-wide count across the call.
 Inside a captured step the events are ``external``: each is an event node
 of the graph and records at every replay (``repro_torch.graphs``).
 
@@ -77,6 +88,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.graphs import Graphed
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models import build_model
 from repro_torch.models.common import AxisRules, init_tree, shape_tree, tree_map
 
@@ -195,12 +207,14 @@ class MiniEngine:
         marks = self._decode_marks
         if marks is not None:
             marks.record(0)
-        logits, cache = self.model.decode(self.cache, self.tokens, self.pos)
+        logits, cache = self.model.decode(self.cache, self.tokens, self.pos,
+                                          donate=True)
         if marks is not None:
             marks.record(1)
         for c_all, c_new in zip(self.cache["layers"], cache["layers"]):
             for name, t in c_all.items():
-                t.copy_(c_new[name])
+                if c_new[name] is not t:      # written in place: nothing to copy
+                    t.copy_(c_new[name])
         if marks is not None:
             marks.record(2)
         return logits
@@ -291,15 +305,20 @@ class MiniEngine:
         with _range("decode.inputs"):
             self.tokens.copy_(torch.from_numpy(self.slot_tok.astype(np.int64)[:, None]))
             self.pos.copy_(torch.from_numpy(self.slot_pos.astype(np.int64)))
+        step = self._decode
+        replay = isinstance(step, Graphed) and step.captured
+        launches = decode_attention.launches
         with _range("decode.replay"):
             t0 = time.perf_counter()
-            logits = self._decode()
+            logits = step()
             self._sync()
             entry["dur"] = time.perf_counter() - t0
         marks = self._decode_marks
         if marks is not None:
             marks.read(entry, "device", 0, 2)
             marks.read(entry, "copyback", 1, 2)
+            entry["attn_kernel"] = (step.tally.get(decode_attention, 0) if replay
+                                    else decode_attention.launches - launches)
         self.step_log.append(entry)
         with _range("decode.readback"):
             nxt = np.argmax(logits[:, 0].float().cpu().numpy(), axis=-1)

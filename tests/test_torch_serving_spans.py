@@ -5,10 +5,12 @@ unique across ``submit`` calls; ``queued`` is the wait from ``submit`` to
 the prefill; under a profiler every host phase is one named range a step,
 and with none no range is entered.  On the card (``gpu``-marked, skipped
 elsewhere): a graphed engine's entries carry the device seconds its
-captured events read, and it serves the eager engine's tokens.
+captured events read and the decode attention kernel's launches, and it
+serves the eager engine's tokens.
 
 This file imports the port only, so it also runs where jax is not installed.
 """
+import dataclasses
 from collections import Counter
 
 import numpy as np
@@ -23,14 +25,16 @@ LENGTHS = (12, 20, 7, 16, 30)      # buckets of 16 and 32 tokens
 N_NEW = 5
 DECODE_PHASES = ("inputs", "replay", "readback", "bookkeeping")
 PREFILL_PHASES = ("replay", "inputs", "slot_copy", "readback")  # ``inputs`` inside ``replay``
-DEVICE_KEYS = ("device", "copyback", "slot_copy_device")
+DEVICE_KEYS = ("device", "copyback", "attn_kernel", "slot_copy_device")
 KEYS = {"decode": {"kind", "batch", "dur", "start", "end"},         # on the CPU
         "prefill": {"kind", "tokens", "dur", "start", "end", "queued"}}
 
 
-def _engine(arch="qwen2-7b", device="cpu", **kw):
-    return MiniEngine(get_config(arch, smoke=True), max_slots=2, max_seq=64,
-                      seed=0, device=device, **kw)
+def _engine(arch="qwen2-7b", device="cpu", head_dim=None, **kw):
+    cfg = get_config(arch, smoke=True)
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    return MiniEngine(cfg, max_slots=2, max_seq=64, seed=0, device=device, **kw)
 
 
 def _prompts(arch="qwen2-7b", seed=3, lengths=LENGTHS):
@@ -181,19 +185,24 @@ def cuda():
 def test_graphed_entries_carry_device_time_and_serve_the_eager_tokens(cuda):
     out = {}
     for eager in (False, True):
-        eng = _engine(device=cuda, dtype=torch.bfloat16, eager=eager)
+        # head dim 128, the kernel's own: no padding on the donated path
+        eng = _engine(device=cuda, head_dim=128, dtype=torch.bfloat16, eager=eager)
+        n_attn = sum(k in ("global", "local") for k in eng.model.kinds)
         for _ in range(2):               # the first pass captures each graph
             eng.step_log.clear()
             reqs = _serve_in_two_submits(eng)
         out[eager] = [list(r.tokens) for r in reqs]
         assert eng.graphed is not eager
         for s in eng.step_log:
-            device = {"decode": {"device", "copyback"},
+            device = {"decode": {"device", "copyback", "attn_kernel"},
                       "prefill": {"device", "slot_copy_device"}}[s["kind"]]
             assert set(s) == KEYS[s["kind"]] | device, s
             assert 0 < s["device"], s
             if s["kind"] == "decode":
-                assert 0 < s["copyback"] < s["device"], s
+                # the kernel once per attention layer, and nothing copied
+                # back: the cache was written in place
+                assert s["attn_kernel"] == n_attn > 0, s
+                assert 0 <= s["copyback"] < s["device"] / 10, s
                 assert s["device"] <= s["dur"]
             else:
                 assert 0 < s["slot_copy_device"], s
