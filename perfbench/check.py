@@ -2,12 +2,14 @@
 
 Once the window has closed and the engine is freed, a sample of the
 window's finished requests (the longest among them, the rest drawn from the
-seed) is replayed by the plain reference (``reference/model.py``, float32),
-once over each prompt with its served tokens.  The engine decodes greedily,
-so each served token should be the reference's best at its position, up to
-rounding.  Each served token's gap is how far its logit lies below the
-reference's best there; a cell's limits name the numbers compared: the
-widest gap (``max_logit_gap``) or the mean gap (``mean_logit_gap``).
+seed) is replayed by the plain reference of the configuration's family
+(``served_logits`` of ``arch/<family>.py``, ``reference/<family>.py``,
+float32), once over each prompt with its served tokens.  The engine decodes
+greedily, so each served token should be the reference's best at its
+position, up to rounding.  Each served token's gap is how far its logit
+lies below the reference's best there; a cell's limits name the numbers
+compared: the widest gap (``max_logit_gap``) or the mean gap
+(``mean_logit_gap``).
 
 The control puts the reference computed from float8 operands in the
 program's place: at the same positions, the gaps of the tokens that the
@@ -20,7 +22,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from perfbench import traffic
-from perfbench.spec import Cell, model_shapes
+from perfbench.spec import Cell, family, model_shapes
 
 
 def sample(requests: Sequence, n: int, seed: int) -> List:
@@ -71,8 +73,8 @@ def readings(cell: Cell, chosen: Sequence, *, seed: int, dtype, device,
     puts first at the same positions: ``fp8`` is the control, ``bf16`` a
     second witness at the program's own precision."""
     import torch
-    from perfbench.reference.model import served_logits
-    m = model_shapes(cell.config)
+    m = model_shapes(cell.config, cell.base)
+    served_logits = family(m).served_logits
     seqs = _seqs(chosen, int(cell.traffic["max_seq"]), device)
     ref = served_logits(m, seed, seqs, dtype=dtype, device=device)
     best = [lg.max(-1).values for lg in ref]

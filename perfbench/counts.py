@@ -1,5 +1,7 @@
 """Operations and bytes the served work needs, from the configuration's
-shapes alone, and the card's published peaks.
+shapes alone, and the card's published peaks.  The peaks and the positions
+a request decodes at are the same for every architecture; each count is
+the configuration's family's (``arch/<family>.py``), found by ``m["arch"]``.
 
 What is counted is what the inputs need, not what the program does: a
 prefill's real prompt tokens (never its bucket's padding), a decode step's
@@ -8,12 +10,13 @@ KV positions read once and each new entry written once.  Copies of the
 whole cache, recomputation and padding are left out, so a change that
 removes them shows as a higher share.
 
-``m`` is ``spec.model_shapes``: d, H, K, hd, L, V, ff, E (0 for a dense
-model), k, window (0 for none), dtype_bytes.
+``m`` is ``spec.model_shapes``: the family's shapes, with ``"arch"``.
 """
 from __future__ import annotations
 
 from typing import Dict, Iterable, Optional
+
+from perfbench.spec import family
 
 # Published dense peaks (NVIDIA's data sheet, SXM part, 700 W), by the
 # name ``torch.cuda.get_device_name()`` gives.
@@ -26,94 +29,34 @@ def peak(device_name: str, what: str) -> Optional[float]:
     return PEAKS.get(device_name, {}).get(what)
 
 
-def attn_matmul_params(m: Dict) -> int:
-    d, H, K, hd = m["d"], m["H"], m["K"], m["hd"]
-    return d * H * hd + 2 * d * K * hd + H * hd * d
-
-
-def expert_params(m: Dict) -> int:
-    """One expert's (or the dense FFN's) gated MLP: gate, up and down."""
-    return 3 * m["d"] * m["ff"]
-
-
-def layer_params(m: Dict) -> int:
-    """Every parameter of one layer: attention, two norms, the FFN (all
-    experts and the router, for an MoE)."""
-    ffn = m["d"] * m["E"] + m["E"] * expert_params(m) if m["E"] else expert_params(m)
-    return attn_matmul_params(m) + 2 * m["d"] + ffn
-
-
 def weight_params(m: Dict) -> int:
-    """The whole model: embedding, layers, final norm, untied head."""
-    return 2 * m["V"] * m["d"] + m["d"] + m["L"] * layer_params(m)
-
-
-def weight_bytes(m: Dict) -> int:
-    return weight_params(m) * m["dtype_bytes"]
+    """Every parameter of the model as run."""
+    return family(m).weight_params(m)
 
 
 def kv_bytes_per_position(m: Dict) -> int:
-    """K and V of one slot-position in every layer."""
-    return m["L"] * 2 * m["K"] * m["hd"] * m["dtype_bytes"]
-
-
-def attended(m: Dict, pos: int) -> int:
-    """Keys a query at 0-based position ``pos`` attends (itself included)."""
-    return min(pos + 1, m["window"]) if m["window"] else pos + 1
-
-
-def token_matmul_params(m: Dict) -> int:
-    """Weights one token multiplies by in one layer: attention, and the
-    router with its top-k experts, or the dense FFN."""
-    if m["E"]:
-        return attn_matmul_params(m) + m["d"] * m["E"] + m["k"] * expert_params(m)
-    return attn_matmul_params(m) + expert_params(m)
-
-
-def _attn_flops(m: Dict, keys: int) -> int:
-    """Scores and the weighted sum of one query over ``keys`` keys, all
-    layers: 2 * hd * keys each, for every query head."""
-    return m["L"] * 4 * m["H"] * m["hd"] * keys
+    """The cache one slot-position holds, every layer."""
+    return family(m).kv_bytes_per_position(m)
 
 
 def prefill_flops(m: Dict, S: int) -> int:
-    """A prompt of ``S`` real tokens, causal, and the head at its last
-    position (the first served token)."""
-    keys = sum(attended(m, i) for i in range(S))
-    return (2 * m["L"] * token_matmul_params(m) * S + _attn_flops(m, keys)
-            + 2 * m["d"] * m["V"])
+    """A prompt of ``S`` real tokens, and the head at its last position."""
+    return family(m).prefill_flops(m, S)
 
 
 def decode_token_flops(m: Dict, pos: int) -> int:
     """One live token fed at position ``pos``: every layer, then the head."""
-    return (2 * m["L"] * token_matmul_params(m) + _attn_flops(m, attended(m, pos))
-            + 2 * m["d"] * m["V"])
-
-
-def experts_hit(m: Dict, batch: int) -> float:
-    """Experts a step of ``batch`` live tokens reads in one layer: all of a
-    dense model's FFN; for an MoE, the expected number of distinct experts
-    that ``batch`` tokens' top-k choices hit when routing is uniform."""
-    if not m["E"]:
-        return 1.0
-    E, k = m["E"], m["k"]
-    return E * (1.0 - (1.0 - k / E) ** batch)
+    return family(m).decode_token_flops(m, pos)
 
 
 def decode_step_weight_bytes(m: Dict, batch: int) -> float:
-    """Weights a decode step of ``batch`` live tokens reads once: each
-    layer's attention, norms, router and the experts its tokens hit, the
-    final norm and head, and one embedding row per token."""
-    b = m["dtype_bytes"]
-    per_layer = attn_matmul_params(m) + 2 * m["d"] + m["d"] * m["E"]
-    per_layer += experts_hit(m, batch) * expert_params(m)
-    return b * (m["L"] * per_layer + m["d"] + m["d"] * m["V"] + batch * m["d"])
+    """Weights a decode step of ``batch`` live tokens reads once."""
+    return family(m).decode_step_weight_bytes(m, batch)
 
 
 def decode_kv_bytes(m: Dict, pos: int) -> int:
-    """A live token at ``pos``: the earlier positions it attends read once,
-    its own new entry written once."""
-    return attended(m, pos) * kv_bytes_per_position(m)
+    """The cache a live token at ``pos`` reads, and its new entry written."""
+    return family(m).decode_kv_bytes(m, pos)
 
 
 def decode_positions(prompt_len: int, n_tokens: int) -> Iterable[int]:

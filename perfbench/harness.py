@@ -23,16 +23,16 @@ the engine appends a token to it, the moment the host holds the token.
 """
 from __future__ import annotations
 
-import dataclasses
 import gc
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from perfbench import check, devtrace, traffic
-from perfbench.spec import Cell, load_metric, model_shapes
+from perfbench.spec import HERE, Cell, family, load_metric, model_shapes
 from perfbench.stats import pct
 from perfbench.weights import make_tree
 
@@ -143,29 +143,11 @@ class Window:
     nvml_busy_percent: Optional[float] = None
 
 
-def port_config(cfg: Dict):
-    """The engine's ModelConfig for a configuration file: its depth, norm
-    epsilon and attention window set from the file, every other size held
-    to the file's."""
-    from repro_torch.configs import get_config
-    port = cfg["port"]
-    pc = get_config(port["name"], smoke=bool(port.get("smoke", False)))
-    m = model_shapes(cfg)
-    pc = dataclasses.replace(pc, num_layers=int(cfg["num_hidden_layers"]),
-                             rms_eps=float(cfg["rms_norm_eps"]),
-                             sliding_window=m["window"])
-    got = {"d": pc.d_model, "H": pc.num_heads, "K": pc.num_kv_heads,
-           "hd": pc.resolved_head_dim, "V": pc.vocab_size, "theta": pc.rope_theta,
-           "eps": pc.rms_eps, "window": pc.sliding_window,
-           "ff": pc.moe.expert_d_ff if pc.moe else pc.d_ff,
-           "E": pc.moe.num_experts if pc.moe else 0,
-           "k": pc.moe.top_k if pc.moe else 0,
-           "capacity_factor": pc.moe.capacity_factor_eval if pc.moe else 0.0}
-    bad = {k: (m[k], v) for k, v in got.items() if m[k] != v}
-    if bad or pc.tie_embeddings or not pc.gated_mlp or pc.mlp_act != "silu":
-        raise ValueError(f"the engine's {port['name']} differs from the "
-                         f"configuration file (file, engine): {bad}")
-    return pc
+def port_config(cfg: Dict, base: Path = HERE):
+    """The engine's ModelConfig for a configuration file, from its family
+    (``arch/<family>.py``), which refuses one that disagrees with the file."""
+    m = model_shapes(cfg, base)
+    return family(m).port_config(cfg, m)
 
 
 def check_fits(cfg: Dict, mix: Dict) -> None:
@@ -185,12 +167,12 @@ def build_engine(cell: Cell, seed: int, dev, params=None):
     graph the mix reaches captured."""
     import torch
     from repro_torch.serving.engine import MiniEngine
-    m = model_shapes(cell.config)
+    m = model_shapes(cell.config, cell.base)
     mix = cell.traffic
     check_fits(cell.config, mix)
     dtype = getattr(torch, cell.config["dtype"])
     with torch.no_grad():
-        engine = MiniEngine(port_config(cell.config), max_slots=int(mix["slots"]),
+        engine = MiniEngine(port_config(cell.config, cell.base), max_slots=int(mix["slots"]),
                             max_seq=int(mix["max_seq"]),
                             params=params if params is not None
                             else make_tree(m, seed, dtype, dev),
@@ -312,7 +294,7 @@ def run(cell: Cell, *, seed: int, seconds: float, trace: bool, t0: float,
                                or torch.cuda.device_count() < cell.chips):
         raise NoDevice(f"{cell.name} needs {cell.chips} CUDA device(s); found "
                        f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
-    m = model_shapes(cell.config)
+    m = model_shapes(cell.config, cell.base)
     mix = cell.traffic
     dtype = getattr(torch, cell.config["dtype"])
     engine = build_engine(cell, seed, dev)

@@ -1,4 +1,4 @@
-"""A plain float32 reference of the served decoders, in plain torch.
+"""The plain float32 reference of the ``llama_style`` family, in plain torch.
 
 One sequence at a time, no cache, no batching, layer by layer: each layer's
 weights are made again from the run's seed (``perfbench.weights``), cast to
@@ -35,6 +35,9 @@ value, 448.  It is the control: the precision below the configuration's
 bfloat16.  ``precision="bf16"`` rounds those products' operands and
 results, and the residual stream, to bfloat16: a second witness, the
 reference at the program's own precision.
+
+Another family's reference may reuse these pieces: ``forward`` runs the
+embedding, the layers and the head for any ``layer_weights`` and ``block``.
 """
 from __future__ import annotations
 
@@ -50,25 +53,30 @@ FP8_MAX = 448.0
 Q_BLOCK = 1024          # query rows scored at a time
 
 
-def _q8(t: torch.Tensor, dim: int) -> torch.Tensor:
+def q8(t: torch.Tensor, dim: int) -> torch.Tensor:
     s = t.abs().amax(dim=dim, keepdim=True).clamp_min(1e-30) / FP8_MAX
     return (t / s).to(torch.float8_e4m3fn).float() * s
 
 
-def _bf(t: torch.Tensor) -> torch.Tensor:
+def bf(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor, prec: str) -> torch.Tensor:
+def rounding(prec: str):
+    """What the residual stream is rounded by between sublayers."""
+    return bf if prec == "bf16" else (lambda t: t)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor, prec: str) -> torch.Tensor:
     """x (T, din) @ w (din, dout); the weight already quantized for fp8."""
     if prec == "fp8":
-        return _q8(x, -1) @ w
+        return q8(x, -1) @ w
     if prec == "bf16":
-        return _bf(_bf(x) @ w)
+        return bf(bf(x) @ w)
     return x @ w
 
 
-def _layer_weights(raw: Dict, m: Dict, prec: str) -> Dict[str, torch.Tensor]:
+def layer_weights(raw: Dict, m: Dict, prec: str) -> Dict[str, torch.Tensor]:
     """The layer's weights as 2-D float32 matrices (din, dout), per expert
     (E, din, dout), quantized per output column for fp8."""
     d, H, K, hd = m["d"], m["H"], m["K"], m["hd"]
@@ -85,7 +93,7 @@ def _layer_weights(raw: Dict, m: Dict, prec: str) -> Dict[str, torch.Tensor]:
     if prec == "fp8":
         for name, t in w.items():
             if t.ndim >= 2:
-                w[name] = _q8(t, -2)
+                w[name] = q8(t, -2)
     return w
 
 
@@ -104,15 +112,14 @@ def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def attention(m: Dict, w: Dict, h: torch.Tensor, prec: str) -> torch.Tensor:
-    T = h.shape[0]
-    H, K, hd = m["H"], m["K"], m["hd"]
-    q = rope(_mm(h, w["wq"], prec).reshape(T, H, hd), m["theta"])
-    k = rope(_mm(h, w["wk"], prec).reshape(T, K, hd), m["theta"])
-    v = _mm(h, w["wv"], prec).reshape(T, K, hd)
+def attend(m: Dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA over q (T, H, hd), k and v (T, K, hd), within
+    ``m["window"]`` keys where it is not 0: (T, H * hd)."""
+    T, H, hd = q.shape
+    K = k.shape[1]
     q = q.reshape(T, K, H // K, hd)
-    keys = torch.arange(T, device=h.device)
-    out = torch.empty((T, K, H // K, hd), dtype=torch.float32, device=h.device)
+    keys = torch.arange(T, device=q.device)
+    out = torch.empty((T, K, H // K, hd), dtype=torch.float32, device=q.device)
     for q0 in range(0, T, Q_BLOCK):
         rows = keys[q0:q0 + Q_BLOCK]
         s = torch.einsum("qkgd,tkd->kgqt", q[q0:q0 + Q_BLOCK], k) / math.sqrt(hd)
@@ -121,7 +128,16 @@ def attention(m: Dict, w: Dict, h: torch.Tensor, prec: str) -> torch.Tensor:
             ok &= rows[:, None] - keys[None, :] < m["window"]
         s = s.masked_fill(~ok, float("-inf"))
         out[q0:q0 + Q_BLOCK] = torch.einsum("kgqt,tkd->qkgd", torch.softmax(s, -1), v)
-    return _mm(out.reshape(T, H * hd), w["wo"], prec)
+    return out.reshape(T, H * hd)
+
+
+def attention(m: Dict, w: Dict, h: torch.Tensor, prec: str) -> torch.Tensor:
+    T = h.shape[0]
+    H, K, hd = m["H"], m["K"], m["hd"]
+    q = rope(mm(h, w["wq"], prec).reshape(T, H, hd), m["theta"])
+    k = rope(mm(h, w["wk"], prec).reshape(T, K, hd), m["theta"])
+    v = mm(h, w["wv"], prec).reshape(T, K, hd)
+    return mm(attend(m, q, k, v), w["wo"], prec)
 
 
 def capacity(m: Dict, bucket: int) -> int:
@@ -132,7 +148,7 @@ def capacity(m: Dict, bucket: int) -> int:
 def moe(m: Dict, w: Dict, h: torch.Tensor, prompt_len: int, cap: int,
         prec: str) -> torch.Tensor:
     E, k = m["E"], m["k"]
-    probs = torch.softmax(_mm(h, w["router"], prec), dim=-1)
+    probs = torch.softmax(mm(h, w["router"], prec), dim=-1)
     gates, ids = torch.topk(probs, k, dim=-1)
     gates = gates / gates.sum(-1, keepdim=True)
     keep = torch.ones_like(ids, dtype=torch.bool)
@@ -147,31 +163,38 @@ def moe(m: Dict, w: Dict, h: torch.Tensor, prompt_len: int, cap: int,
         if tok.numel() == 0:
             continue
         x = h[tok]
-        a = F.silu(_mm(x, w["w_gate"][e], prec)) * _mm(x, w["w_in"][e], prec)
-        y[tok] += (gates * sel)[tok].sum(-1, keepdim=True) * _mm(a, w["w_out"][e], prec)
+        a = F.silu(mm(x, w["w_gate"][e], prec)) * mm(x, w["w_in"][e], prec)
+        y[tok] += (gates * sel)[tok].sum(-1, keepdim=True) * mm(a, w["w_out"][e], prec)
     return y
 
 
 def mlp(w: Dict, h: torch.Tensor, prec: str) -> torch.Tensor:
-    a = F.silu(_mm(h, w["w_gate"], prec)) * _mm(h, w["w_in"], prec)
-    return _mm(a, w["w_out"], prec)
+    a = F.silu(mm(h, w["w_gate"], prec)) * mm(h, w["w_in"], prec)
+    return mm(a, w["w_out"], prec)
 
 
-def block(m: Dict, w: Dict, x: torch.Tensor, prompt_len: int, cap: int,
-          prec: str) -> torch.Tensor:
-    rnd = _bf if prec == "bf16" else (lambda t: t)
+def ffn(m: Dict, w: Dict, h: torch.Tensor, s: Dict, prec: str) -> torch.Tensor:
+    """The MoE at the capacity of the sequence's prefill bucket, or the
+    dense SwiGLU."""
+    if m["E"]:
+        return moe(m, w, h, s["prompt_len"], capacity(m, s["bucket"]), prec)
+    return mlp(w, h, prec)
+
+
+def block(m: Dict, w: Dict, x: torch.Tensor, s: Dict, prec: str) -> torch.Tensor:
+    """One decoder layer over sequence ``s``'s stream ``x`` (T, d)."""
+    rnd = rounding(prec)
     x = rnd(x + attention(m, w, rnd(rms_norm(x, w["ln1"], m["eps"])), prec))
     h = rnd(rms_norm(x, w["ln2"], m["eps"]))
-    return rnd(x + (moe(m, w, h, prompt_len, cap, prec) if m["E"] else mlp(w, h, prec)))
+    return rnd(x + ffn(m, w, h, s, prec))
 
 
 @torch.no_grad()
-def served_logits(m: Dict, seed: int, seqs: Sequence[Dict], *, dtype, device,
-                  precision: str = "f32") -> List[torch.Tensor]:
-    """Logits (n, V), float32, at each position that predicts a served
-    token: ``seqs`` holds ``tokens`` (the prompt and every served token but
-    the last, a 1-D int64 tensor), ``prompt_len`` and ``bucket`` (the
-    engine's prefill bucket for the prompt)."""
+def forward(m: Dict, seed: int, seqs: Sequence[Dict], *, dtype, device, precision: str,
+            layer_weights=layer_weights, block=block) -> List[torch.Tensor]:
+    """The embedding, each layer (``layer_weights`` of its weights drawn
+    again from the seed, then ``block`` over every sequence), and the head
+    on the final norm at each position that predicts a served token."""
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -179,17 +202,24 @@ def served_logits(m: Dict, seed: int, seqs: Sequence[Dict], *, dtype, device,
         emb = make_outer(m, seed, "embed", dtype, device)["embed"]
         xs = [emb[s["tokens"].to(device)].float() for s in seqs]
         del emb
-        caps = [capacity(m, s["bucket"]) if m["E"] else 0 for s in seqs]
         for layer in range(m["L"]):
-            w = _layer_weights(make_layer(m, seed, layer, dtype, device), m, precision)
-            xs = [block(m, w, x, s["prompt_len"], c, precision)
-                  for x, s, c in zip(xs, seqs, caps)]
+            w = layer_weights(make_layer(m, seed, layer, dtype, device), m, precision)
+            xs = [block(m, w, x, s, precision) for x, s in zip(xs, seqs)]
             del w
         head = make_outer(m, seed, "head", dtype, device)
         norm, wh = head["final_norm"].float(), head["head"].float()
         if precision == "fp8":
-            wh = _q8(wh, -2)
-        return [_mm(rms_norm(x[s["prompt_len"] - 1:], norm, m["eps"]), wh, precision)
+            wh = q8(wh, -2)
+        return [mm(rms_norm(x[s["prompt_len"] - 1:], norm, m["eps"]), wh, precision)
                 for x, s in zip(xs, seqs)]
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def served_logits(m: Dict, seed: int, seqs: Sequence[Dict], *, dtype, device,
+                  precision: str = "f32") -> List[torch.Tensor]:
+    """Logits (n, V), float32, at each position that predicts a served
+    token: ``seqs`` holds ``tokens`` (the prompt and every served token but
+    the last, a 1-D int64 tensor), ``prompt_len`` and ``bucket`` (the
+    engine's prefill bucket for the prompt)."""
+    return forward(m, seed, seqs, dtype=dtype, device=device, precision=precision)

@@ -5,8 +5,11 @@ name the cells, its metrics say which cell reports what.  Everything else is
 a file of its own, found by the name the index gives: ``cells/<cell>.json``
 (a configuration, a traffic mix, the limits that decide ``correct``),
 ``configs/<config>.json``, ``traffic/<mix>.json`` and
-``metrics/<metric>.py``.  Adding a cell, a mix, a configuration or a metric
-adds files and edits none.
+``metrics/<metric>.py``.  A configuration names its architecture, its
+``"arch"``: the family module ``arch/<family>.py`` (its shapes, weight
+layout, the engine's config, the counts), whose plain reference is
+``reference/<family>.py``.  Adding a cell, a mix, a configuration, an
+architecture or a metric adds files and edits none.
 """
 from __future__ import annotations
 
@@ -33,34 +36,70 @@ def load_traffic(name: str, base: Path = HERE) -> dict:
     return _json(base / "traffic" / f"{name}.json")
 
 
-def load_metric(name: str, base: Path = HERE) -> ModuleType:
-    """The reader ``metrics/<name>.py``: ``LAYER``, ``UNIT``, ``MOVES`` and
-    ``read(window) -> float | None``."""
-    path = base / "metrics" / f"{name}.py"
+def load_module(path: Path, name: str) -> ModuleType:
+    """The Python file ``path``, executed as a module of its own."""
     spec = importlib.util.spec_from_file_location(
-        "perfbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-def model_shapes(cfg: dict) -> Dict:
-    """The sizes the counts and the reference read, from a configuration
-    file (the source's own keys, as run)."""
-    d = cfg["hidden_size"]
-    H = cfg["num_attention_heads"]
-    return {
-        "d": d, "H": H, "K": cfg["num_key_value_heads"],
-        "hd": cfg.get("head_dim") or d // H,
-        "L": cfg["num_hidden_layers"], "V": cfg["vocab_size"],
-        "ff": cfg["intermediate_size"], "theta": float(cfg["rope_theta"]),
-        "eps": float(cfg["rms_norm_eps"]),
-        "window": int(cfg["serving"].get("attention_window", 0)),
-        "E": int(cfg.get("num_local_experts", 0)),
-        "k": int(cfg.get("num_experts_per_tok", 0)),
-        "capacity_factor": float(cfg["serving"].get("moe_capacity_factor", 0.0)),
-        "dtype_bytes": {"bfloat16": 2, "float16": 2, "float32": 4}[cfg["dtype"]],
-    }
+def load_metric(name: str, base: Path = HERE) -> ModuleType:
+    """The reader ``metrics/<name>.py``: ``LAYER``, ``UNIT``, ``MOVES`` and
+    ``read(window) -> float | None``."""
+    return load_module(base / "metrics" / f"{name}.py", "perfbench_metric_" + name)
+
+
+# What every family module ``arch/<family>.py`` defines, each a plain
+# function documented there.  The counts are those ``counts.py`` hands on.
+INTERFACE = ("shapes", "layer_leaves", "outer_leaves", "port_config", "served_logits",
+             "prefill_flops", "decode_token_flops", "decode_step_weight_bytes",
+             "decode_kv_bytes", "weight_params", "kv_bytes_per_position")
+
+_LOADED: Dict[Path, ModuleType] = {}      # family modules by file
+_FAMILIES: Dict[str, ModuleType] = {}     # by name: the one a configuration last loaded
+
+
+def load_arch(name: str, base: Path = HERE) -> ModuleType:
+    """The family module ``arch/<name>.py`` of ``base``, refused where it
+    is missing or lacks a function of ``INTERFACE``.  It becomes the family
+    that ``family`` finds under ``name``."""
+    path = (base / "arch" / f"{name}.py").resolve()
+    if Path(name).name != name or not path.is_file():
+        raise ValueError(f"no architecture family {name!r}: arch/{name}.py is missing")
+    if path not in _LOADED:
+        mod = load_module(path, "perfbench_arch_" + name)
+        missing = [f for f in INTERFACE if not callable(getattr(mod, f, None))]
+        if missing:
+            raise ValueError(f"arch/{name}.py does not define {', '.join(missing)}")
+        _LOADED[path] = mod
+    _FAMILIES[name] = _LOADED[path]
+    return _LOADED[path]
+
+
+def config_family(cfg: dict, base: Path = HERE) -> ModuleType:
+    """The family module a configuration names by its ``"arch"``; a
+    configuration that names none is refused: there is no default."""
+    name = cfg.get("arch")
+    if not name:
+        raise ValueError(f"configuration {cfg.get('name')!r} names no architecture: "
+                         f'give it "arch": "<family>", the module arch/<family>.py')
+    return load_arch(name, base)
+
+
+def model_shapes(cfg: dict, base: Path = HERE) -> Dict:
+    """The sizes the counts, the weights and the reference read: the
+    family's ``shapes`` of a configuration file, with ``"arch"``, the
+    family's name, added."""
+    return dict(config_family(cfg, base).shapes(cfg), arch=cfg["arch"])
+
+
+def family(m: Dict) -> ModuleType:
+    """The family module of shapes ``m`` (``model_shapes``): the one last
+    loaded under ``m["arch"]``, so that of the configuration being run,
+    else this folder's."""
+    return _FAMILIES.get(m["arch"]) or load_arch(m["arch"])
 
 
 @dataclass
@@ -100,7 +139,9 @@ def load_cell(name: str, root: Path) -> Cell:
            if "workloads" not in m or name in m["workloads"]]
     e2e_names = {m["name"] for m in e2e}
     per_layer = [m for m in index["per_layer"] if _reports(m, name, e2e_names)]
-    return Cell(name=name, config=load_config(own["config"], base),
+    config = load_config(own["config"], base)
+    config_family(config, base)
+    return Cell(name=name, config=config,
                 traffic=load_traffic(own["traffic"], base), limits=own["limits"],
                 chips=int(entry["chips"]), end_to_end=e2e, per_layer=per_layer,
                 base=base)

@@ -16,10 +16,11 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 
 def smoke_config(port_name: str, **changes) -> dict:
-    """A configuration file's dict for the engine's smoke geometry of
-    ``port_name``, with ``changes`` to the port's ModelConfig applied.  A
-    sliding window is set to the smoke mix's slot length, as every cell's
-    window is at least its slots' (no cell wraps the window's ring)."""
+    """A ``llama_style`` configuration file's dict for the engine's smoke
+    geometry of ``port_name``, with ``changes`` to the port's ModelConfig
+    applied.  A sliding window is set to the smoke mix's slot length, as
+    every cell's window is at least its slots' (no cell wraps the window's
+    ring)."""
     import dataclasses
     from repro_torch.configs import get_config
     pc = get_config(port_name, smoke=True)
@@ -29,7 +30,7 @@ def smoke_config(port_name: str, **changes) -> dict:
     if pc.moe is not None and moe:
         changes["moe"] = dataclasses.replace(pc.moe, **moe)
     pc = dataclasses.replace(pc, **changes)
-    cfg = {"name": pc.name, "port": {"name": port_name, "smoke": True},
+    cfg = {"name": pc.name, "arch": "llama_style", "port": {"name": port_name, "smoke": True},
            "dtype": "float32", "hidden_size": pc.d_model,
            "num_attention_heads": pc.num_heads, "num_key_value_heads": pc.num_kv_heads,
            "head_dim": pc.resolved_head_dim, "num_hidden_layers": pc.num_layers,

@@ -1,11 +1,14 @@
 """The counts behind ``decode_mfu``, ``prefill_mfu`` and ``decode_mbu``,
 tied to sizes worked by hand, and the rule that padding and dead slots are
-not counted."""
+not counted.  ``fam`` is the ``llama_style`` family, whose counts
+``counts.py`` hands on."""
 import pytest
 
 from perfbench import counts
 from perfbench.harness import Served, Window
-from perfbench.spec import load_config, load_metric, model_shapes
+from perfbench.spec import load_arch, load_config, load_metric, model_shapes
+
+fam = load_arch("llama_style")
 
 
 def shapes(name):
@@ -22,18 +25,18 @@ def shapes(name):
 def test_weights_and_cache_match_the_hand_worked_sizes(name, gb, params_b, kv):
     m = shapes(name)
     assert round(counts.weight_params(m) / 1e9, 2) == params_b
-    assert round(counts.weight_bytes(m) / 1e9, 2) == gb
+    assert round(fam.weight_bytes(m) / 1e9, 2) == gb
     assert counts.kv_bytes_per_position(m) == kv
 
 
 def test_exact_counts_of_the_mixtral_stage():
     m = shapes("mixtral-8x7b-pp2")
-    assert counts.attn_matmul_params(m) == 41_943_040
-    assert counts.expert_params(m) == 176_160_768
+    assert fam.attn_matmul_params(m) == 41_943_040
+    assert fam.expert_params(m) == 176_160_768
     assert counts.weight_params(m) == 2 * 32000 * 4096 + 4096 + 16 * (
         41_943_040 + 8_192 + 32_768 + 8 * 176_160_768)
     # a token multiplies by attention, the router and two experts
-    assert counts.token_matmul_params(m) == 41_943_040 + 32_768 + 2 * 176_160_768
+    assert fam.token_matmul_params(m) == 41_943_040 + 32_768 + 2 * 176_160_768
 
 
 def test_prefill_flops_by_hand():
@@ -48,14 +51,14 @@ def test_prefill_flops_by_hand():
 
 def test_window_bounds_the_keys():
     m = dict(shapes("mixtral-8x7b-pp2"), window=4)
-    assert [counts.attended(m, p) for p in range(7)] == [1, 2, 3, 4, 4, 4, 4]
+    assert [fam.attended(m, p) for p in range(7)] == [1, 2, 3, 4, 4, 4, 4]
 
 
 def test_experts_hit():
     m = shapes("mixtral-8x7b-pp2")
-    assert counts.experts_hit(m, 1) == pytest.approx(2.0)
-    assert counts.experts_hit(m, 32) == pytest.approx(8.0, rel=1e-3)
-    assert counts.experts_hit(shapes("yi-9b"), 5) == 1.0
+    assert fam.experts_hit(m, 1) == pytest.approx(2.0)
+    assert fam.experts_hit(m, 32) == pytest.approx(8.0, rel=1e-3)
+    assert fam.experts_hit(shapes("yi-9b"), 5) == 1.0
 
 
 def _window(name, steps, requests, max_slots=8):
@@ -89,7 +92,7 @@ def test_dead_slots_are_not_counted():
     flops = sum(counts.decode_token_flops(m, p) for p in (10, 11, 20, 21))
     assert load_metric("decode_mfu").read(w) == pytest.approx(
         100 * flops / (0.02 * 989e12))
-    kv = sum(counts.attended(m, p) for p in (10, 11, 20, 21)) * 64 * 1024
+    kv = sum(fam.attended(m, p) for p in (10, 11, 20, 21)) * 64 * 1024
     wb = 2 * counts.decode_step_weight_bytes(m, 2)
     assert load_metric("decode_mbu").read(w) == pytest.approx(
         100 * (wb + kv) / (0.02 * 3.35e12))

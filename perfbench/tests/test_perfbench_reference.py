@@ -10,7 +10,7 @@ import torch
 
 from conftest import SMOKE_SECONDS, smoke_cell, smoke_config
 from perfbench import harness, traffic
-from perfbench.reference import model as ref
+from perfbench.reference import llama_style as ref
 from perfbench.spec import model_shapes
 from perfbench.weights import make_layer, make_tree
 
@@ -62,7 +62,7 @@ def test_moe_capacity_drops_as_the_port_does():
     with torch.no_grad():
         want, aux = moe_apply(pc, layer["moe"], h, NO_RULES, train=False)
     assert float(aux["moe_drop_frac"]) > 0.2
-    w = ref._layer_weights(layer, m, "f32")
+    w = ref.layer_weights(layer, m, "f32")
     cap = ref.capacity(m, T)
     assert cap == 32
     got = ref.moe(m, w, h[0], T, cap, "f32")

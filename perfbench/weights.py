@@ -6,10 +6,13 @@ leaves and scaled leaf by leaf.  So set-up makes a layer in one call, and
 the plain reference makes any layer again, alone and bit for bit, after the
 program has been freed: it never reads a tensor the program held.
 
-The layout is the served engine's parameter tree (``layers`` a tuple of
-per-layer dicts, leaves named as there); the reference reads the same names.
-RMSNorm scales are zero-centred, ``y * (1 + w)``, as the engine applies
-them, drawn small and non-zero so that a norm applied wrongly shows.
+The layout is the configuration's family's (``arch/<family>.py``:
+``layer_leaves`` by layer index, ``outer_leaves`` by part), named as in
+the served engine's parameter tree: the outer parts' leaves at its top,
+``layers`` a tuple of per-layer dicts.  The reference reads the same names.
+The standard deviations below are the families' common ones.  RMSNorm
+scales are zero-centred, ``y * (1 + w)``, as the engine applies them, drawn
+small and non-zero so that a norm applied wrongly shows.
 """
 from __future__ import annotations
 
@@ -18,41 +21,14 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from perfbench.spec import family
+
 NORM_STD = 0.1          # zero-centred RMSNorm scales: 1 + N(0, 0.1^2)
 EMBED_STD = 0.02
 HEAD_STD = 0.02
 ROUTER_STD = 0.02
 
 Leaf = Tuple[str, Tuple[int, ...], float]
-
-
-def layer_leaves(m: Dict) -> List[Leaf]:
-    """(dotted name, shape, std) of one decoder layer's leaves."""
-    d, H, K, hd = m["d"], m["H"], m["K"], m["hd"]
-    leaves: List[Leaf] = [
-        ("ln1", (d,), NORM_STD), ("ln2", (d,), NORM_STD),
-        ("attn.wq", (d, H, hd), d ** -0.5), ("attn.wk", (d, K, hd), d ** -0.5),
-        ("attn.wv", (d, K, hd), d ** -0.5), ("attn.wo", (H, hd, d), (H * hd) ** -0.5),
-    ]
-    ff = m["ff"]
-    if m["E"]:
-        E = m["E"]
-        leaves += [("moe.router", (d, E), ROUTER_STD),
-                   ("moe.w_in", (E, d, ff), d ** -0.5),
-                   ("moe.w_gate", (E, d, ff), d ** -0.5),
-                   ("moe.w_out", (E, ff, d), ff ** -0.5)]
-    else:
-        leaves += [("mlp.w_in", (d, ff), d ** -0.5),
-                   ("mlp.w_gate", (d, ff), d ** -0.5),
-                   ("mlp.w_out", (ff, d), ff ** -0.5)]
-    return leaves
-
-
-def outer_leaves(m: Dict) -> Dict[str, List[Leaf]]:
-    """The parts outside the layers: the embedding; the head and final norm."""
-    return {"embed": [("embed", (m["V"], m["d"]), EMBED_STD)],
-            "head": [("final_norm", (m["d"],), NORM_STD),
-                     ("head", (m["d"], m["V"]), HEAD_STD)]}
 
 
 def part_seed(seed: int, part: str) -> int:
@@ -88,17 +64,18 @@ def make_part(leaves: List[Leaf], seed: int, part: str, dtype, device) -> Dict:
 
 
 def make_layer(m: Dict, seed: int, layer: int, dtype, device) -> Dict:
-    return make_part(layer_leaves(m), seed, f"layer{layer}", dtype, device)
+    return make_part(family(m).layer_leaves(m, layer), seed, f"layer{layer}", dtype, device)
 
 
 def make_outer(m: Dict, seed: int, part: str, dtype, device) -> Dict:
-    return make_part(outer_leaves(m)[part], seed, part, dtype, device)
+    return make_part(family(m).outer_leaves(m)[part], seed, part, dtype, device)
 
 
 def make_tree(m: Dict, seed: int, dtype, device) -> Dict:
-    """The engine's parameter tree for the run's seed."""
-    head = make_outer(m, seed, "head", dtype, device)
-    return {"embed": make_outer(m, seed, "embed", dtype, device)["embed"],
-            "final_norm": head["final_norm"], "head": head["head"],
-            "layers": tuple(make_layer(m, seed, i, dtype, device)
-                            for i in range(m["L"]))}
+    """The engine's parameter tree for the run's seed: each outer part's
+    leaves at the top, then ``layers``."""
+    tree: Dict = {}
+    for part in family(m).outer_leaves(m):
+        tree.update(make_outer(m, seed, part, dtype, device))
+    tree["layers"] = tuple(make_layer(m, seed, i, dtype, device) for i in range(m["L"]))
+    return tree
