@@ -24,8 +24,9 @@ one JSON line each (``simulate``, ``table2`` one per run or cell and one for the
 1. ``env``        the card as ``nvidia-smi`` names it, torch and CUDA versions
 2. ``build``      compiles ``src/repro_torch/kernels/csrc/*.cu``
 3. ``kernels``    every kernel against its plain PyTorch version on the card,
-                  f32 and bf16 (decode attention also at the served
-                  engines' own shapes, ``SERVED_DECODE``), then timed at every shape its path gives it,
+                  f32 and bf16 (decode and flash attention also at the
+                  served engines' own shapes, ``SERVED_DECODE`` and
+                  ``SERVED_PREFILL``), then timed at every shape its path gives it,
                   each beside its bound, its plain version and a library
                   call where one exists, by CUDA events and by ``device_ms``:
                   the attention kernels at ``calibrate``'s prefills of 512,
@@ -72,7 +73,9 @@ one JSON line each (``simulate``, ``table2`` one per run or cell and one for the
                   at full width, mixtral-8x7b at 16 of its 32 layers; bf16,
                   random weights) measured on ``MiniEngine`` (a warm pass,
                   which captures its CUDA graphs, then the measured one;
-                  every request must complete with its tokens), each
+                  every request must complete with its tokens, and every
+                  measured prefill, graphed or eager, must launch the flash
+                  attention kernel once per attention layer), each
                   qwen2-7b cell and mixtral-8x7b's first also with
                   ``eager=True``, in turns, the graphed tokens equal to
                   the eager ones; predicted from the graphed measurement
@@ -502,8 +505,30 @@ def check_flash(gen, rows: dict) -> None:
     got = ops.flash_attention(q, k, k, causal=True)
     errs.append(compare(name, "hd112 f32", got,
                         ref.flash_attention_ref(q, k, k, causal=True), TOL_F32))
+    # the shapes the served prefills give it, in bf16 at full size
+    for arch, S in SERVED_PREFILL:
+        cfg = get_config(arch)
+        Hh, Kk, hdd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        window = cfg.sliding_window if "local" in cfg.pattern else 0
+        q = randn(gen, 1, S, Hh, hdd, dtype=torch.bfloat16)
+        k = randn(gen, 1, S, Kk, hdd, dtype=torch.bfloat16)
+        v = randn(gen, 1, S, Kk, hdd, dtype=torch.bfloat16)
+        got = ops.flash_attention(q, k, v, causal=True, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        errs.append(compare(name, f"{arch} S={S} H={Hh} K={Kk} hd={hdd} "
+                                  f"window={window} bf16", got, want, TOL_BF16_ATTN))
+        del q, k, v, got, want
 
     rows[name] = dict(max_abs_err=max(errs))   # timed in time_attention
+
+
+# (model, bucket): the prefill attention the served engines run, each
+# layer's causal core over a whole bucket: yi-9b's benchmark prompts (8
+# query heads a KV head), mixtral-8x7b's (its window of 4096 at the last
+# bucket), qwen2-7b's Table 2 engine (7 a KV head) and recurrentgemma-2b's
+# local attention (10 query heads on one KV head of 256, a window of 2048)
+SERVED_PREFILL = (("yi-9b", 4096), ("mixtral-8x7b", 4096),
+                  ("qwen2-7b", TABLE2_MAX_SEQ), ("recurrentgemma-2b", 4096))
 
 
 # (model, slots, cache length): the decode attention the served engines run,
@@ -1324,16 +1349,19 @@ def summary_of(rep: dict) -> dict:
 
 def measure_cell(cfg, batch: int, prompt: int, output: int, eager: bool) -> dict:
     """One Table 2 cell measured by ``launch.serve.measure``, on the engine's
-    CUDA graphs or (``eager``) uncaptured."""
+    CUDA graphs or (``eager``) uncaptured, with each measured prefill's
+    ``flash_attention`` launches (``prefill_attn_kernel``)."""
     gc.collect()                 # a graphed engine is freed by the collector
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
-    measured, floor, reqs = serve_launch.measure(
+    measured, floor, reqs, steps = serve_launch.measure(
         cfg, batch=batch, prompt_len=prompt, output_len=output,
         max_seq=TABLE2_MAX_SEQ, seed=0, device="cuda", dtype=torch.bfloat16,
         eager=eager)
     return {"measured": measured, "floor": floor,
+            "prefill_attn_kernel": [s["attn_kernel"] for s in steps
+                                    if s["kind"] == "prefill"],
             "line": {key: measured[key] for key in (
                 "throughput_tok_s", "ttft_mean_s", "tpot_mean_s", "duration_s",
                 "decode_steps", "output_tokens")},
@@ -1437,6 +1465,34 @@ def decode_idle_share(cfg, eager: bool) -> dict:
             "unprofiled": plain}
 
 
+def table2_runs(cfg, k: int, batch: int, prompt: int, output: int) -> tuple:
+    """The ``k``-th Table 2 cell of ``cfg`` served graphed and eager, in
+    turns (mixtral's cells after its first graphed only), each run held to
+    its tokens and to one ``flash_attention`` launch per attention layer in
+    every measured prefill.  Returns the runs by mode and whether the graphed
+    tokens equal the eager ones (``None`` without an eager run)."""
+    arch = cfg.name
+    cell = f"{arch} b{batch} p{prompt} o{output}"
+    n_attn = sum(kind in ("global", "local") for kind in cfg.pattern)
+    modes = (("graphed", "eager") if arch == "qwen2-7b" or k == 0
+             else ("graphed",))
+    runs = {mode: measure_cell(cfg, batch, prompt, output, eager=mode == "eager")
+            for mode in (modes[::-1] if k % 2 else modes)}
+    for mode, run in runs.items():
+        if [len(t) for t in run["tokens"]] != [output] * batch:
+            fail(f"table2 {cell} {mode}: tokens "
+                 f"{[len(t) for t in run['tokens']]}")
+        if run["prefill_attn_kernel"] != [n_attn] * batch:
+            fail(f"table2 {cell} {mode}: prefill flash_attention launches "
+                 f"{run['prefill_attn_kernel']}, want {n_attn} in each of {batch}")
+    equal = (runs["eager"]["tokens"] == runs["graphed"]["tokens"]
+             if "eager" in runs else None)
+    if equal is False:
+        fail(f"table2 {cell}: graphed tokens differ from eager ones at "
+             f"{first_differences(runs['graphed']['tokens'], runs['eager']['tokens'])}")
+    return runs, equal
+
+
 def phase_table2(mixtral_roots: list) -> None:
     """Table 2 on the card (``TABLE2``): each cell measured on ``MiniEngine``
     (``launch.serve.measure``: a warm pass, then the measured one) and
@@ -1465,22 +1521,7 @@ def phase_table2(mixtral_roots: list) -> None:
             for name, (hw, o) in profiles.items() if o is not None}
         for k, (batch, prompt, output) in enumerate(grid):
             cell = f"{arch} b{batch} p{prompt} o{output}"
-            # graphed (the default) and eager in turns; mixtral's second
-            # cell graphed only
-            modes = (("graphed", "eager") if arch == "qwen2-7b" or k == 0
-                     else ("graphed",))
-            runs = {mode: measure_cell(cfg, batch, prompt, output,
-                                       eager=mode == "eager")
-                    for mode in (modes[::-1] if k % 2 else modes)}
-            for mode, run in runs.items():
-                if [len(t) for t in run["tokens"]] != [output] * batch:
-                    fail(f"table2 {cell} {mode}: tokens "
-                         f"{[len(t) for t in run['tokens']]}")
-            equal = (runs["eager"]["tokens"] == runs["graphed"]["tokens"]
-                     if "eager" in runs else None)
-            if equal is False:
-                fail(f"table2 {cell}: graphed tokens differ from eager ones at "
-                     f"{first_differences(runs['graphed']['tokens'], runs['eager']['tokens'])}")
+            runs, equal = table2_runs(cfg, k, batch, prompt, output)
             measured, floor = runs["graphed"]["measured"], runs["graphed"]["floor"]
             preds = {}
             t1 = time.perf_counter()
@@ -1512,6 +1553,7 @@ def phase_table2(mixtral_roots: list) -> None:
                 measured=runs["graphed"]["line"], decode_floor_s=floor,
                 peak_mem_gb=runs["graphed"]["peak_mem_gb"],
                 measure_s=runs["graphed"]["measure_s"],
+                prefill_attn_kernel=runs["graphed"]["prefill_attn_kernel"],
                 eager=({key: runs["eager"][key] for key in (
                     "line", "floor", "peak_mem_gb", "measure_s")}
                     if "eager" in runs else None),

@@ -37,12 +37,12 @@ from repro_torch.workload.generator import fixed_batch
 def measure(cfg: ModelConfig, *, batch: int, prompt_len: int,
             output_len: int, max_seq: int, seed: int = 0,
             device="cuda", dtype=torch.float32, options=None, eager=False
-            ) -> Tuple[Dict[str, float], float, List[ServeRequest]]:
+            ) -> Tuple[Dict[str, float], float, List[ServeRequest], List[Dict]]:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens twice on one
     ``MiniEngine`` (random weights from ``seed``): a warm pass, which
     captures the steps' graphs on the card, then the measured pass.  Returns
     the measured pass's report, its decode floor (the fastest decode step,
-    in seconds) and its requests."""
+    in seconds), its requests and its ``step_log`` entries."""
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, prompt_len) for _ in range(batch)]
 
@@ -56,7 +56,7 @@ def measure(cfg: ModelConfig, *, batch: int, prompt_len: int,
     measured = engine.run()           # steady-state measurement
     step_floor = min(s["dur"] for s in engine.step_log
                      if s["kind"] == "decode")
-    return measured, step_floor, requests
+    return measured, step_floor, requests, engine.step_log
 
 
 def predict(cfg: ModelConfig, hw: HardwareSpec, step_floor: Optional[float],
@@ -80,7 +80,7 @@ def run(arch: str = "qwen2-7b", *, batch: int = 4, prompt_len: int = 32,
         calibrate: bool = True, device="cuda", smoke: bool = True,
         dtype=torch.float32, eager=False):
     cfg = get_config(arch, smoke=smoke)
-    measured, step_floor, _ = measure(
+    measured, step_floor, _, _ = measure(
         cfg, batch=batch, prompt_len=prompt_len, output_len=output_len,
         max_seq=max_seq, seed=seed, device=device, dtype=dtype, eager=eager)
     hw = measure_hardware(device)

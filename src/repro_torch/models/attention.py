@@ -4,10 +4,13 @@ Port of ``repro/models/attention.py``: GQA with any (H, K), qk_norm,
 attention-logit softcap, sliding-window attention with ring caches,
 cross-attention, bidirectional encoders.  These are the reference's plain
 paths (``_sdpa`` and the blockwise online softmax); the reference models never
-call the Pallas attention kernels.  The port calls one: a decode step whose
+call the Pallas attention kernels.  The port calls two.  A decode step whose
 caller hands its cache over (``donate``) writes its entry into that cache in
 place and attends with the decode attention kernel over each row's live
-prefix (``attention_decode``).
+prefix (``attention_decode``).  A full-sequence self-attention core on a CUDA
+tensor that autograd would not record, with no mesh, no logit softcap and
+its own positions, runs the flash attention kernel (``attention_train``):
+the served prefill, without the S x S bias or f32 scores ``_sdpa`` builds.
 
 TP mapping (megatron-style over the "model" mesh axis), as the reference's:
 train/prefill replicate KV heads ``rep = tp/gcd(K, tp)`` times so the q-head
@@ -23,11 +26,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels._build import grad_would_record
 from repro_torch.models.common import (
     PD, AxisRules, apply_rope, rms_norm, rope_freqs, softcap,
 )
@@ -143,6 +148,17 @@ def _sdpa(cfg: ModelConfig, q, k, v, bias) -> torch.Tensor:
     return torch.einsum("bkgst,btkd->bskgd", probs, v)
 
 
+def _flash_core(cfg: ModelConfig, ax: AxisRules, q, k, v) -> bool:
+    """Whether a self-attention core over its own positions may run as the
+    flash attention kernel: real CUDA tensors (not a dry run's fake ones) that
+    autograd would not record (the kernel has no backward), no mesh and no
+    logit softcap.  The kernel's index mask is then ``_valid`` of the
+    positions, and it computes the core as ``_sdpa`` does: bf16 products
+    accumulated in f32, an f32 online softmax, P in bf16 for PV."""
+    return (q.device.type == "cuda" and not is_fake(q) and ax.mesh is None
+            and not cfg.attn_logit_softcap and not grad_would_record(q, k, v))
+
+
 def _sdpa_blockwise(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal: bool,
                     window: int, block: int = 1024) -> torch.Tensor:
     """Online-softmax attention over KV blocks of ``block`` keys: only a
@@ -190,9 +206,15 @@ def attention_train(cfg: ModelConfig, p, x, ax: AxisRules, *,
                     positions: Optional[torch.Tensor] = None,
                     memory: Optional[torch.Tensor] = None,
                     memory_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence attention.  memory != None => cross-attention."""
+    """Full-sequence attention.  memory != None => cross-attention.
+
+    Self-attention over its own positions takes the flash attention kernel
+    where ``_flash_core`` holds and ``attn_impl`` is not "blockwise"; every
+    other call (training, a mesh, softcap, cross-attention, explicit
+    positions, blockwise, the CPU) takes ``_sdpa`` or the blockwise core."""
     B, S, _ = x.shape
-    if positions is None:
+    own_positions = positions is None
+    if own_positions:
         positions = torch.arange(S, device=x.device).expand(B, S)
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     rep = kv_replication(cfg, ax)   # KV heads replicated across TP ranks
@@ -215,21 +237,28 @@ def attention_train(cfg: ModelConfig, p, x, ax: AxisRules, *,
         # DTensor cannot split a head-sharded dim into (Kr, G) unless Kr
         # divides over "model" (GSPMD reshards there on its own)
         q = ax.constrain(q, "batch", None, None, None)
-    q = q.reshape(B, S, Kr, H // Kr, hd)
-    if ax.opt("attn_impl", "naive") == "blockwise":
-        block = int(ax.opt("attn_block", 1024))
-
-        def core(q, k, v):
-            return _sdpa_blockwise(cfg, q, k, v, positions[0], k_pos[0],
-                                   causal=causal, window=window, block=block)
+    blockwise = ax.opt("attn_impl", "naive") == "blockwise"
+    if (not blockwise and memory is None and own_positions
+            and _flash_core(cfg, ax, q, k, v)):
+        # head h reads KV head h // (H // Kr), the (Kr, G) grouping below
+        out = kernel_ops.flash_attention(q, k, v, causal=causal, window=window)
     else:
-        bias = _bias(_valid(positions[0], k_pos[0], causal=causal, window=window))
+        q = q.reshape(B, S, Kr, H // Kr, hd)
+        if blockwise:
+            block = int(ax.opt("attn_block", 1024))
 
-        def core(q, k, v):
-            return _sdpa(cfg, q, k, v, bias)
-    out = _per_head(ax, core, q, k, v, q_axes=("batch", None, "heads", None, None),
-                    kv_axes=("batch", None, "heads", None))
-    out = out.reshape(B, S, H, hd)
+            def core(q, k, v):
+                return _sdpa_blockwise(cfg, q, k, v, positions[0], k_pos[0],
+                                       causal=causal, window=window, block=block)
+        else:
+            bias = _bias(_valid(positions[0], k_pos[0], causal=causal, window=window))
+
+            def core(q, k, v):
+                return _sdpa(cfg, q, k, v, bias)
+        out = _per_head(ax, core, q, k, v,
+                        q_axes=("batch", None, "heads", None, None),
+                        kv_axes=("batch", None, "heads", None))
+        out = out.reshape(B, S, H, hd)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return ax.constrain(y, "batch", None, "embed")
 

@@ -28,8 +28,11 @@ softcap writes its new entry into the slot cache in place and attends with
 the hand-written decode attention kernel over each slot's live prefix (on
 the CPU, its plain version), returning the slot cache's own tensors.  The
 step copies back only what the model returns as new tensors (recurrent
-states, and softcapped attention layers).  On the card
-each step is captured once in a CUDA graph and replayed after
+states, and softcapped attention layers).  On the card each prefill's
+attention layers without a logit softcap run the hand-written flash
+attention kernel over the padded bucket (``models.attention``); on the CPU
+they keep the reference's plain core.  On the card each step is captured
+once in a CUDA graph and replayed after
 (``repro_torch.graphs``): the decode step at the first decode, each prefill
 at its bucket's first prefill, the capturing step's own call run eagerly on
 a side stream and its result used.  On the CPU, or with ``eager=True`` on
@@ -54,12 +57,13 @@ recorded where the work runs and read after the step's synchronise (none
 added): decode ``device`` (its body, start to end) and ``copyback`` (from
 the model's return to the end of the copy of its cache into the slot
 cache, an empty interval where nothing is copied back); prefill ``device``
-(the bucket's body) and ``slot_copy_device``.  A decode entry on the card
-also has ``attn_kernel``: the ``decode_attention`` kernel launches the step
-made (one per attention layer on the donated path, 0 on the functional
-one).  A replay reads them from its graph's own tally, with no synchronise
-(``repro_torch.graphs``); an eager or capturing call, as the change in the
-process-wide count across the call.
+(the bucket's body) and ``slot_copy_device``.  Every entry on the card
+also has ``attn_kernel``: the attention kernel launches the step made, one
+per attention layer where the kernel's path applies and 0 elsewhere
+(``decode_attention`` for a decode step, on the donated path;
+``flash_attention`` for a prefill).  A replay reads them from its graph's
+own tally, with no synchronise (``repro_torch.graphs``); an eager or
+capturing call, as the change in the process-wide count across the call.
 Inside a captured step the events are ``external``: each is an event node
 of the graph and records at every replay (``repro_torch.graphs``).
 
@@ -89,6 +93,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.graphs import Graphed
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import build_model
 from repro_torch.models.common import AxisRules, init_tree, shape_tree, tree_map
 
@@ -138,6 +143,13 @@ class _DeviceMarks:
     def read(self, entry: Dict, key: str, a: int, b: int) -> None:
         if a in self.seen and b in self.seen:
             entry[key] = self.events[a].elapsed_time(self.events[b]) / 1e3
+
+
+def _launches(step, replay: bool, kernel, before: int) -> int:
+    """``kernel``'s launches in one call of ``step``: a replay's from its
+    graph's tally, an eager or capturing call's as the change in the
+    process-wide count from ``before``."""
+    return step.tally.get(kernel, 0) if replay else kernel.launches - before
 
 
 def _bucket(n: int) -> int:
@@ -258,6 +270,8 @@ class MiniEngine:
                 functools.partial(self._prefill_body, buf, marks), pool=self._pool))
         buf, step = self._prefills[bucket]
         marks = self._prefill_marks[bucket]
+        replay = isinstance(step, Graphed) and step.captured
+        launches = flash_attention.launches
         with _range("prefill.replay"):
             t0 = time.perf_counter()
             with _range("prefill.inputs"):
@@ -285,6 +299,7 @@ class MiniEngine:
         if marks is not None:       # the readback waited for every event
             marks.read(entry, "device", 0, 1)
             slot_marks.read(entry, "slot_copy_device", 0, 1)
+            entry["attn_kernel"] = _launches(step, replay, flash_attention, launches)
         req.first_token = time.perf_counter()
         req.tokens.append(first)
         self.slots[slot] = req
@@ -317,8 +332,7 @@ class MiniEngine:
         if marks is not None:
             marks.read(entry, "device", 0, 2)
             marks.read(entry, "copyback", 1, 2)
-            entry["attn_kernel"] = (step.tally.get(decode_attention, 0) if replay
-                                    else decode_attention.launches - launches)
+            entry["attn_kernel"] = _launches(step, replay, decode_attention, launches)
         self.step_log.append(entry)
         with _range("decode.readback"):
             nxt = np.argmax(logits[:, 0].float().cpu().numpy(), axis=-1)

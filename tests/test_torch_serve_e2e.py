@@ -86,12 +86,15 @@ def test_predict_without_a_floor_keeps_the_default_overhead():
 @pytest.mark.parametrize("arch,layers", [("qwen2-7b", None), ("mixtral-8x7b", 1)])
 def test_measure_completes_every_request(arch, layers):
     cfg, _ = _configs(arch, layers)
-    measured, floor, reqs = serve.measure(cfg, batch=3, prompt_len=16,
-                                          output_len=5, max_seq=64,
-                                          device="cpu")
+    measured, floor, reqs, steps = serve.measure(cfg, batch=3, prompt_len=16,
+                                                 output_len=5, max_seq=64,
+                                                 device="cpu")
     assert [len(r.tokens) for r in reqs] == [5, 5, 5]
     assert measured["n_requests"] == 3 and measured["output_tokens"] == 15
     assert measured["decode_steps"] == 4
+    # the measured pass's own entries: three prefills, four decodes
+    assert [s["kind"] for s in steps].count("prefill") == 3
+    assert [s["kind"] for s in steps].count("decode") == 4
     assert 0 < floor <= measured["duration_s"]
 
 

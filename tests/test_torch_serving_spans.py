@@ -5,8 +5,9 @@ unique across ``submit`` calls; ``queued`` is the wait from ``submit`` to
 the prefill; under a profiler every host phase is one named range a step,
 and with none no range is entered.  On the card (``gpu``-marked, skipped
 elsewhere): a graphed engine's entries carry the device seconds its
-captured events read and the decode attention kernel's launches, and it
-serves the eager engine's tokens.
+captured events read and the attention kernels' launches (decode's and, in
+a prefill, flash attention's), and it serves the eager engine's tokens.  On
+the CPU no entry carries either.
 
 This file imports the port only, so it also runs where jax is not installed.
 """
@@ -114,7 +115,9 @@ def test_a_requests_stamps_lie_inside_the_engines_steps(served):
 
 
 def test_the_cpu_records_no_device_time(served):
+    """Nor a kernel count: no entry, prefill or decode, has ``attn_kernel``."""
     eng, _ = served
+    assert {s["kind"] for s in eng.step_log} == {"prefill", "decode"}
     for s in eng.step_log:
         assert not set(DEVICE_KEYS) & set(s)
 
@@ -195,13 +198,13 @@ def test_graphed_entries_carry_device_time_and_serve_the_eager_tokens(cuda):
         assert eng.graphed is not eager
         for s in eng.step_log:
             device = {"decode": {"device", "copyback", "attn_kernel"},
-                      "prefill": {"device", "slot_copy_device"}}[s["kind"]]
-            assert set(s) == KEYS[s["kind"]] | device, s
+                      "prefill": {"device", "slot_copy_device", "attn_kernel"}}
+            assert set(s) == KEYS[s["kind"]] | device[s["kind"]], s
             assert 0 < s["device"], s
+            # the step's attention kernel once per attention layer
+            assert s["attn_kernel"] == n_attn > 0, s
             if s["kind"] == "decode":
-                # the kernel once per attention layer, and nothing copied
-                # back: the cache was written in place
-                assert s["attn_kernel"] == n_attn > 0, s
+                # nothing copied back: the cache was written in place
                 assert 0 <= s["copyback"] < s["device"] / 10, s
                 assert s["device"] <= s["dur"]
             else:
