@@ -182,10 +182,9 @@ class KernelOracle(Oracle):
             if key not in self._cache:
                 q = self._randn(1, s, n_heads, head_dim)
                 k = self._randn(1, t, n_kv_heads, head_dim)
-                bq = bk = min(128, max(16, s))
                 self._cache[key] = self._time(
                     lambda q, k: ops.flash_attention(
-                        q, k, k, causal=causal, window=window, bq=bq, bk=bk),
+                        q, k, k, causal=causal, window=window),
                     q, k)
             total += self._cache[key]
         return total
@@ -205,8 +204,7 @@ class KernelOracle(Oracle):
             lengths = torch.tensor([min(int(x), t) for x in context_lens],
                                    dtype=torch.int32, device=self.device)
             self._cache[key] = self._time(
-                lambda q, k, lengths: ops.decode_attention(
-                    q, k, k, lengths, bk=min(256, t)),
+                lambda q, k, lengths: ops.decode_attention(q, k, k, lengths),
                 q, k, lengths)
         return self._cache[key]
 
@@ -222,12 +220,8 @@ class KernelOracle(Oracle):
             sizes = torch.tensor([min(int(t), cap)
                                   for t in tokens_per_expert],
                                  dtype=torch.int32, device=self.device)
-            bm = min(128, max(16, cap))
             self._cache[key] = self._time(
-                lambda x, w, sizes: ops.grouped_gemm(
-                    x, w, sizes, bm=bm, bn=min(128, d_out),
-                    bkk=min(512, d_in)),
-                x, w, sizes)
+                lambda x, w, sizes: ops.grouped_gemm(x, w, sizes), x, w, sizes)
         return self._cache[key]
 
 

@@ -16,9 +16,8 @@ next multiple of 128 here, not inside the kernels, and ``q`` is rescaled by
 ``hd**-0.5 / padded**-0.5`` so the kernel's own ``padded**-0.5`` comes out as
 the true scale; the kernels therefore see head dims of 128 or 256 only.
 
-The tile keywords (``bq``, ``bk``, ``bm``, ``bn``, ``bkk``) are kept so callers
-written for the reference port unchanged.  They are accepted and ignored: the
-CUDA kernels choose their own tiles.
+The CUDA kernels choose their own tiles, so the wrappers take no tile sizes
+(the reference's Pallas wrappers take ``bq``, ``bk``, ``bm``, ``bn``, ``bkk``).
 """
 from __future__ import annotations
 
@@ -45,7 +44,7 @@ def _rescale_q(qp: torch.Tensor, hd: int) -> torch.Tensor:
     return qp * (hd ** -0.5 / qp.shape[-1] ** -0.5)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, bq=128, bk=128):
+def flash_attention(q, k, v, *, causal=True, window=0):
     qp, hd = _pad_hd(q)
     kp, _ = _pad_hd(k)
     vp, _ = _pad_hd(v)
@@ -55,7 +54,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, bq=128, bk=128):
     return out[..., :hd]
 
 
-def decode_attention(q, k, v, lengths, *, bk=256):
+def decode_attention(q, k, v, lengths):
     qp, hd = _pad_hd(q)
     kp, _ = _pad_hd(k)
     vp, _ = _pad_hd(v)
@@ -63,7 +62,7 @@ def decode_attention(q, k, v, lengths, *, bk=256):
     return out[..., :hd]
 
 
-def grouped_gemm(x, w, group_sizes, *, bm=128, bn=128, bkk=512):
+def grouped_gemm(x, w, group_sizes):
     return _gg.grouped_gemm(x, w, group_sizes)
 
 

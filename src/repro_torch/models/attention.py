@@ -12,6 +12,16 @@ tensor that autograd would not record, with no mesh, no logit softcap and
 its own positions, runs the flash attention kernel (``attention_train``):
 the served prefill, without the S x S bias or f32 scores ``_sdpa`` builds.
 
+This module owns a layer's K/V.  Its decode cache entry (``cache_pds``) is
+"k"/"v" of ``cache_len`` slots, a ring where the window is shorter than the
+sequence: absolute position p sits at slot ``p % cache_len``, stored so by
+``_kv_to_cache`` and written and read so by ``attention_decode``; a
+cross-attention layer adds its memory's "xk"/"xv".  ``attention_prefill``
+runs a prompt's attention and returns that entry, built on one device from
+the k/v its core attended over (one q/k/v projection); under tensor
+parallelism the core's k/v are laid out otherwise, and the cache projects
+its own.
+
 TP mapping (megatron-style over the "model" mesh axis), as the reference's:
 train/prefill replicate KV heads ``rep = tp/gcd(K, tp)`` times so the q-head
 axis shards evenly (replicated attention when H itself does not divide), each
@@ -26,6 +36,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
@@ -201,17 +212,15 @@ def _sdpa_blockwise(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal: bool,
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)          # (B,S,K,G,hd)
 
 
-def attention_train(cfg: ModelConfig, p, x, ax: AxisRules, *,
-                    window: int = 0, causal: bool = True,
-                    positions: Optional[torch.Tensor] = None,
-                    memory: Optional[torch.Tensor] = None,
-                    memory_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence attention.  memory != None => cross-attention.
-
-    Self-attention over its own positions takes the flash attention kernel
-    where ``_flash_core`` holds and ``attn_impl`` is not "blockwise"; every
-    other call (training, a mesh, softcap, cross-attention, explicit
-    positions, blockwise, the CPU) takes ``_sdpa`` or the blockwise core."""
+def _attend(cfg: ModelConfig, p, x, ax: AxisRules, *, window: int,
+            causal: bool, positions: Optional[torch.Tensor],
+            memory: Optional[torch.Tensor],
+            memory_positions: Optional[torch.Tensor],
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``attention_train``'s attention, returning ``(y, k, v)``: the output
+    and the k/v its core attended over (B, T, K * ``kv_replication``, hd),
+    RoPE'd at their positions for self-attention, the memory's for
+    cross-attention."""
     B, S, _ = x.shape
     own_positions = positions is None
     if own_positions:
@@ -260,18 +269,96 @@ def attention_train(cfg: ModelConfig, p, x, ax: AxisRules, *,
                         kv_axes=("batch", None, "heads", None))
         out = out.reshape(B, S, H, hd)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return ax.constrain(y, "batch", None, "embed")
+    return ax.constrain(y, "batch", None, "embed"), k, v
+
+
+def attention_train(cfg: ModelConfig, p, x, ax: AxisRules, *,
+                    window: int = 0, causal: bool = True,
+                    positions: Optional[torch.Tensor] = None,
+                    memory: Optional[torch.Tensor] = None,
+                    memory_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention.  memory != None => cross-attention.
+
+    Self-attention over its own positions takes the flash attention kernel
+    where ``_flash_core`` holds and ``attn_impl`` is not "blockwise"; every
+    other call (training, a mesh, softcap, cross-attention, explicit
+    positions, blockwise, the CPU) takes ``_sdpa`` or the blockwise core."""
+    return _attend(cfg, p, x, ax, window=window, causal=causal,
+                   positions=positions, memory=memory,
+                   memory_positions=memory_positions)[0]
+
+
+def attention_prefill(cfg: ModelConfig, p, x, ax: AxisRules, *,
+                      window: int = 0, cache_len: int = 0,
+                      memory: Optional[torch.Tensor] = None,
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``attention_train`` of a prompt (causal self-attention over its own
+    positions, by the same core) and the layer's decode cache entry: "k" and
+    "v" in a cache of ``cache_len`` slots (``S`` where 0, ``_kv_to_cache``).
+    With ``memory``, cross-attention over it and the entry "xk" and "xv",
+    the memory's k/v that decode attends over.
+
+    On one device, or under data parallelism alone, the entry is the core's
+    own k/v: one projection.  Under tensor parallelism the core holds
+    ``kv_replication`` copies of each KV head split on heads, while the
+    cache holds the K heads split on its slots ("kv_seq"), so the cache
+    projects its own k/v, as the reference's compiled step does on a mesh."""
+    B, S, _ = x.shape
+    y, k, v = _attend(cfg, p, x, ax, window=window, causal=True, positions=None,
+                      memory=memory, memory_positions=None)
+    if ax.model_size() > 1:
+        if memory is None:
+            pos = torch.arange(S, device=x.device).expand(B, S)
+            _, k, v = _project_qkv(cfg, p, x, pos, ax)
+        else:
+            k, v = _proj(memory, p["wk"]), _proj(memory, p["wv"])
+    if memory is not None:
+        return y, {"xk": k, "xv": v}
+    return y, _kv_to_cache(k, v, cache_len or S, window, ax)
 
 
 # ---------------------------------------------------------------------------
 # Decode path (single new token against a KV cache)
 # ---------------------------------------------------------------------------
-def cache_pds(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, PD]:
+def cache_pds(cfg: ModelConfig, batch: int, cache_len: int,
+              memory_len: int = 0) -> Dict[str, PD]:
+    """A layer's decode cache entry: "k"/"v" of ``cache_len`` slots split
+    on them ("kv_seq"), and with ``memory_len`` the cross-attention's
+    memory k/v "xk"/"xv"."""
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    return {
+    c = {
         "k": PD((batch, cache_len, K, hd), ("batch", "kv_seq", None, None), "zeros"),
         "v": PD((batch, cache_len, K, hd), ("batch", "kv_seq", None, None), "zeros"),
     }
+    if memory_len:
+        c["xk"] = PD((batch, memory_len, K, hd), ("batch", None, None, None), "zeros")
+        c["xv"] = PD((batch, memory_len, K, hd), ("batch", None, None, None), "zeros")
+    return c
+
+
+def _kv_to_cache(k, v, cache_len: int, window: int, ax: AxisRules):
+    """Store prefill K/V into a (possibly ring) cache of length cache_len."""
+    S = k.shape[1]
+    eff = min(window, cache_len) if window else cache_len
+
+    def pad(x, n):      # zeros after the sequence axis (dim 1)
+        return F.pad(x, (0, 0, 0, 0, 0, n)) if n else x
+
+    if S >= eff:
+        ck, cv = k[:, S - eff:], v[:, S - eff:]
+        shift = S % cache_len
+        if window and eff == cache_len and shift:
+            # ring semantics: absolute position p lives at slot p % cache_len
+            # (decode writes at pos % cache_len), so rotate the stored window
+            # (``torch.roll`` by two slices: DTensor has no rule for roll in
+            # every torch version)
+            ck = torch.cat([ck[:, -shift:], ck[:, :-shift]], dim=1)
+            cv = torch.cat([cv[:, -shift:], cv[:, :-shift]], dim=1)
+        ck, cv = pad(ck, cache_len - eff), pad(cv, cache_len - eff)
+    else:
+        ck, cv = pad(k, cache_len - S), pad(v, cache_len - S)
+    return {"k": ax.constrain(ck, "batch", "kv_seq", None, None),
+            "v": ax.constrain(cv, "batch", "kv_seq", None, None)}
 
 
 def attention_decode(cfg: ModelConfig, p, x, cache: Dict[str, torch.Tensor],

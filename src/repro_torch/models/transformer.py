@@ -5,13 +5,17 @@ Block kinds: "global"/"local" (attention + dense-or-MoE FFN), "rwkv"
 (time-mix + channel-mix), "recurrent" (RG-LRU + MLP).  The reference scans
 over stacked groups of layers; the port keeps one parameter module per layer
 (``models/model.py``) and calls these functions layer by layer.
+
+An attention block hands its layer's K/V wholly to ``models/attention.py``:
+the projections, the decode cache entry (``cache_pds``) and its ring rule,
+and the prefill that fills it (``attention_prefill``); this module calls only
+attention's public functions.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import (
     ATTN_GLOBAL, ATTN_LOCAL, RECURRENT, RWKV, ModelConfig,
@@ -70,12 +74,8 @@ def block_cache_pds(cfg: ModelConfig, kind: str, batch: int, seq: int,
                     memory_len: int = 0) -> Dict[str, Any]:
     d = cfg.d_model
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
-        c = attn.cache_pds(cfg, batch, cfg.kv_cache_len(seq, kind))
-        if cfg.cross_attention and memory_len:
-            K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-            c["xk"] = PD((batch, memory_len, K, hd), ("batch", None, None, None), "zeros")
-            c["xv"] = PD((batch, memory_len, K, hd), ("batch", None, None, None), "zeros")
-        return c
+        return attn.cache_pds(cfg, batch, cfg.kv_cache_len(seq, kind),
+                              memory_len if cfg.cross_attention else 0)
     if kind == RWKV:
         H, hs = d // cfg.rwkv_head_size, cfg.rwkv_head_size
         return {
@@ -168,22 +168,18 @@ def block_train(cfg: ModelConfig, kind: str, p, x, ax: AxisRules, *,
 def block_prefill(cfg: ModelConfig, kind: str, p, x, ax: AxisRules, *,
                   memory: Optional[torch.Tensor] = None, cache_len: int = 0,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Forward that also produces the decode cache entry for this block."""
-    B, S, d = x.shape
+    """Forward that also produces the decode cache entry for this block
+    (attention's from ``attention.attention_prefill``)."""
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         window = cfg.sliding_window if kind == ATTN_LOCAL else 0
-        h = _norm(cfg, p, "ln1", x)
-        # recompute k/v for the cache (cheap relative to attention)
-        pos = torch.arange(S, device=x.device).expand(B, S)
-        _, k, v = attn._project_qkv(cfg, p["attn"], h, pos, ax)
-        a = attn.attention_train(cfg, p["attn"], h, ax, window=window, causal=True)
+        a, cache = attn.attention_prefill(cfg, p["attn"], _norm(cfg, p, "ln1", x),
+                                          ax, window=window, cache_len=cache_len)
         x = x + _post(cfg, p, "ln1_post", a)
-        cache = _kv_to_cache(k, v, cache_len or S, window, ax)
         if memory is not None:
-            x = x + attn.attention_train(cfg, p["xattn"], _norm(cfg, p, "ln_x", x),
-                                         ax, memory=memory)
-            cache["xk"] = attn._proj(memory, p["xattn"]["wk"])
-            cache["xv"] = attn._proj(memory, p["xattn"]["wv"])
+            a, xcache = attn.attention_prefill(
+                cfg, p["xattn"], _norm(cfg, p, "ln_x", x), ax, memory=memory)
+            x = x + a
+            cache.update(xcache)
         f, _ = _ffn_train(cfg, p, _norm(cfg, p, "ln2", x), ax, train=False)
         return x + _post(cfg, p, "ln2_post", f), cache
     if kind == RWKV:
@@ -191,31 +187,6 @@ def block_prefill(cfg: ModelConfig, kind: str, p, x, ax: AxisRules, *,
     if kind == RECURRENT:
         return _recurrent_full(cfg, p, x, ax)
     raise ValueError(kind)
-
-
-def _kv_to_cache(k, v, cache_len: int, window: int, ax: AxisRules):
-    """Store prefill K/V into a (possibly ring) cache of length cache_len."""
-    S = k.shape[1]
-    eff = min(window, cache_len) if window else cache_len
-
-    def pad(x, n):      # zeros after the sequence axis (dim 1)
-        return F.pad(x, (0, 0, 0, 0, 0, n)) if n else x
-
-    if S >= eff:
-        ck, cv = k[:, S - eff:], v[:, S - eff:]
-        shift = S % cache_len
-        if window and eff == cache_len and shift:
-            # ring semantics: absolute position p lives at slot p % cache_len
-            # (decode writes at pos % cache_len), so rotate the stored window
-            # (``torch.roll`` by two slices: DTensor has no rule for roll in
-            # every torch version)
-            ck = torch.cat([ck[:, -shift:], ck[:, :-shift]], dim=1)
-            cv = torch.cat([cv[:, -shift:], cv[:, :-shift]], dim=1)
-        ck, cv = pad(ck, cache_len - eff), pad(cv, cache_len - eff)
-    else:
-        ck, cv = pad(k, cache_len - S), pad(v, cache_len - S)
-    return {"k": ax.constrain(ck, "batch", "kv_seq", None, None),
-            "v": ax.constrain(cv, "batch", "kv_seq", None, None)}
 
 
 def block_decode(cfg: ModelConfig, kind: str, p, x, cache, pos, ax: AxisRules,

@@ -10,13 +10,16 @@ and some ops on fake CUDA tensors; with CUDA the default ``"cuda"`` runs),
 and counts them with ``hlo_cost.Counter``.  Smoke widths, a (2, 4)
 mesh, the three step kinds of yi-9b, mixtral-8x7b and rwkv6-1.6b.
 
-Per-device flops agree within 1 % (prefill, decode) and 2 % (train).  The
-one difference of the two counting models is the prefill's second q/k/v
-projection, which ``block_prefill`` runs to fill the cache (both packages):
-eager torch runs it, XLA eliminates it as a common subexpression but for
-what ``XLA_KEEPS`` pins (ROADMAP Queue C, "No HLO").  On the (2, 4) mesh the
-train steps differ within 2 %: mixtral-8x7b +0.25 % (GSPMD splits the
-router's weight gradient over two ranks, the port computes it whole),
+Per-device flops agree within 1 % (prefill, decode) and 2 % (train).  On
+one device the port's prefill projects q/k/v once and fills the cache from
+the core's k/v (``attention.attention_prefill``), where the reference
+projects twice and XLA eliminates the second as a common subexpression: the
+counts are compared as they are.  Under tensor parallelism both packages
+project the cache's k/v a second time (the core's are laid out otherwise);
+eager torch runs all of it, XLA all but what ``XLA_KEEPS`` pins (ROADMAP
+Queue C, "No HLO").  On the (2, 4) mesh the train steps differ within 2 %:
+mixtral-8x7b +0.25 % (GSPMD splits the router's weight gradient over two
+ranks, the port computes it whole),
 rwkv6-1.6b -1.43 % (``AxisRules.shared_product`` splits the decay LoRA's
 weight gradient over the four "model" ranks, GSPMD over two).
 """
@@ -96,19 +99,21 @@ def port():
 
 
 # Flops a device of the prefill's second projection that XLA keeps on the
-# (2, 4) mesh: yi-9b the cache's k projection over the rank's quarter of the
-# sequence (its "kv_seq" split), mixtral-8x7b nothing.  Before the repeated
+# (2, 4) mesh, where the port runs it whole (``_recomputed_projection``):
+# yi-9b the cache's k projection over the rank's quarter of the sequence
+# (its "kv_seq" split), mixtral-8x7b nothing.  Before the repeated
 # KV heads were projected per rank and decode attention split over the
 # cache's slots, the port counted 1.04-1.52 of the reference on every cell
 # of this mesh (ROADMAP Queue C5).
 XLA_KEEPS = {"yi-9b": 262144, "mixtral-8x7b": 0}
 
 
-def _recomputed_projection(arch: str, kind: str, mesh=(1, 1)) -> float:
-    """The flops a device of the q/k/v projection that ``block_prefill``
-    runs a second time to fill the cache (``transformer.py``, both
-    packages): on a ("data", "model") mesh the rank's rows, its query heads
-    and its KV heads (all of them unless they divide "model")."""
+def _recomputed_projection(arch: str, kind: str, mesh=(2, 4)) -> float:
+    """The flops a device of the q/k/v projection that a prefill runs a
+    second time to fill the cache under tensor parallelism
+    (``attention.attention_prefill``; the reference's ``block_prefill``): on
+    a ("data", "model") mesh the rank's rows, its query heads and its KV
+    heads (all of them unless they divide "model")."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL
     cfg = get_config(arch, smoke=True)
@@ -126,17 +131,18 @@ def _recomputed_projection(arch: str, kind: str, mesh=(1, 1)) -> float:
 
 @pytest.mark.parametrize("arch,kind", CELLS)
 def test_flops_on_one_device(reference, port, arch, kind):
-    """On a (1, 1) mesh the counter and ``analyze`` count the same products,
-    but for the prefill's second q/k/v projection, which XLA eliminates."""
+    """On a (1, 1) mesh the counter and ``analyze`` count the same products:
+    the port's prefill projects q/k/v once, the reference's twice with XLA
+    eliminating the second."""
     key = f"{(1, 1)}/{arch}/{kind}"
-    got = port[key][0]["flops"] - _recomputed_projection(arch, kind)
+    got = port[key][0]["flops"]
     assert got == pytest.approx(reference[key]["flops"], rel=TOL[kind])
 
 
 @pytest.mark.parametrize("arch,kind", CELLS)
 def test_flops_per_device_on_a_mesh(reference, port, arch, kind):
-    """On (2, 4) as on one device, but for the part of the prefill's second
-    projection that XLA keeps (``XLA_KEEPS``), held exactly."""
+    """On (2, 4) as on one device, but for the prefill's second projection,
+    which the port runs whole and XLA in part (``XLA_KEEPS``), held exactly."""
     key = f"{(2, 4)}/{arch}/{kind}"
     got = port[key][0]["flops"] - _recomputed_projection(arch, kind, (2, 4))
     want = reference[key]["flops"]

@@ -53,8 +53,7 @@ def test_flash_attention_matches_reference(B, S, T, H, K, hd, causal, window,
                                            dtype):
     (jq, jk, jv), (tq, tk, tv) = both(dtype, arr(B, S, H, hd),
                                       arr(B, T, K, hd), arr(B, T, K, hd))
-    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window,
-                              bq=16, bk=16)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
     assert got.shape == (B, S, H, hd) and got.dtype == tq.dtype
     kernel = ref_ops.flash_attention(jq, jk, jv, causal=causal, window=window,
                                      bq=16, bk=16)
@@ -76,7 +75,7 @@ def test_decode_attention_matches_reference(B, T, H, K, hd, dtype):
     (jq, jk, jv), (tq, tk, tv) = both(dtype, arr(B, H, hd), arr(B, T, K, hd),
                                       arr(B, T, K, hd))
     lens = RNG.integers(1, T + 1, B).astype(np.int32)
-    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens), bk=32)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
     assert got.shape == (B, H, hd) and got.dtype == tq.dtype
     kernel = ref_ops.decode_attention(jq, jk, jv, jnp.asarray(lens), bk=32)
     oracle = ref_ref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens))
@@ -91,7 +90,7 @@ def test_decode_attention_length_edges(fill):
     (jq, jk, jv), (tq, tk, tv) = both("f32", arr(B, H, hd), arr(B, T, K, hd),
                                       arr(B, T, K, hd))
     lens = np.full((B,), T if fill == "full" else 1, np.int32)
-    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens), bk=16)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
     kernel = ref_ops.decode_attention(jq, jk, jv, jnp.asarray(lens), bk=16)
     oracle = ref_ref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens))
     np.testing.assert_allclose(f32(got), f32(kernel), atol=2e-5, rtol=2e-5)
@@ -105,7 +104,7 @@ def test_flash_vs_decode_consistency():
                                       arr(B, T, K, hd), arr(B, T, K, hd))
     full = ops.flash_attention(tq, tk, tv, causal=True)
     got = ops.decode_attention(tq[:, -1], tk, tv,
-                               torch.tensor([T], dtype=torch.int32), bk=16)
+                               torch.tensor([T], dtype=torch.int32))
     np.testing.assert_allclose(f32(got), f32(full[:, -1]), atol=2e-5, rtol=2e-5)
     want = ref_ref.flash_attention_ref(jq, jk, jv, causal=True)
     np.testing.assert_allclose(f32(got), f32(want[:, -1]), atol=2e-5, rtol=2e-5)

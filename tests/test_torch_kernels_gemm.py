@@ -45,7 +45,7 @@ def test_grouped_gemm_matches_reference(E, C, din, dout, dtype):
     x, w = arr(E, C, din), arr(E, din, dout)
     gs = RNG.integers(0, C + 1, E).astype(np.int32)
     got = ops.grouped_gemm(from_numpy(x, "cpu", td), from_numpy(w, "cpu", td),
-                           torch.from_numpy(gs), bm=16, bn=64, bkk=32)
+                           torch.from_numpy(gs))
     assert got.shape == (E, C, dout) and got.dtype == td
     jx, jw, jg = jnp.asarray(x, jd), jnp.asarray(w, jd), jnp.asarray(gs)
     kernel = ref_ops.grouped_gemm(jx, jw, jg, bm=16, bn=64, bkk=32)
@@ -64,7 +64,7 @@ def test_grouped_gemm_ragged_property(e_and_sizes):
     x, w = arr(E, C, 32), arr(E, 32, 48)
     gs = np.asarray(sizes, np.int32)
     got = f32(ops.grouped_gemm(torch.from_numpy(x), torch.from_numpy(w),
-                               torch.from_numpy(gs), bm=8, bn=48, bkk=32))
+                               torch.from_numpy(gs)))
     kernel = ref_ops.grouped_gemm(jnp.asarray(x), jnp.asarray(w),
                                   jnp.asarray(gs), bm=8, bn=48, bkk=32)
     np.testing.assert_allclose(got, f32(kernel), atol=2e-5, rtol=2e-5)
@@ -77,8 +77,7 @@ def test_grouped_gemm_all_empty_groups():
     E, C, din, dout = 3, 16, 32, 48
     x, w = arr(E, C, din), arr(E, din, dout)
     gs = torch.zeros((E,), dtype=torch.int32)
-    got = ops.grouped_gemm(torch.from_numpy(x), torch.from_numpy(w), gs,
-                           bm=8, bn=48, bkk=32)
+    got = ops.grouped_gemm(torch.from_numpy(x), torch.from_numpy(w), gs)
     assert np.all(f32(got) == 0.0)
 
 
